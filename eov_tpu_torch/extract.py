@@ -1,0 +1,248 @@
+"""Clip feature extraction: decode -> preprocess -> backbone -> store.
+
+Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
+``resolve_fused_stages``, ``make_feature_fn``, ``extract_features``).
+
+* ``make_feature_fn`` builds the feature program, uint8 clips
+  ``[B, K, H, W, 3]`` -> clip features ``[B, D]``: the fused crop+normalize
+  (kernel 1) when frames are stored at the eval scale (``min(h, w) ==
+  scale_size``, so the resize is the identity), the resize path otherwise;
+  then the folded ResNet with fused stages (kernel 2 inside); then TSN mean
+  consensus over the K segments.
+* ``extract_features`` runs it over a dataset into a ``FeatureStore``. A
+  decode thread prepares the next batch while the device computes the
+  current one; decode faults are skipped and logged; clips already in the
+  store are skipped (resume); the store flushes every ``flush_every``
+  clips.
+
+Not ported yet, and refused by ``ExtractConfig`` rather than ignored:
+int8 quantization (``quant``), the Pallas stem pool (``pallas_pool``), the
+space-to-depth stem (``stem_s2d``). The multi-chip mesh path is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import queue
+import threading
+from typing import Callable
+
+import numpy as np
+import torch
+
+from eov_tpu_torch.data.datasets import VideoDataset
+from eov_tpu_torch.data.segments import center_indices_np
+from eov_tpu_torch.data.store import FeatureStore
+from eov_tpu_torch.models.folded_infer import (FoldedResNet,
+                                               resolve_fused_stages,
+                                               use_full_f32)
+from eov_tpu_torch.models.resnet import fold_batchnorm
+from eov_tpu_torch.ops import preprocess
+from eov_tpu_torch.ops.crop_normalize import crop_normalize
+from eov_tpu_torch.utils.device import resolve_device
+from eov_tpu_torch.utils.metrics import MetricsWriter, Timer
+
+__all__ = ["ExtractConfig", "resolve_fused_stages", "make_feature_fn",
+           "extract_features"]
+
+log = logging.getLogger("eov_tpu_torch.extract")
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractConfig:
+    num_segments: int = 8          # K segments per clip
+    arch: str = "resnet50"
+    batch_clips: int = 16          # clips per device batch
+    scale_size: int = 256
+    crop_size: int = 224
+    compute_dtype: str = "bfloat16"
+    fused_stages: tuple | str = "auto"  # "auto" = (1,) on bottleneck archs
+    flush_every: int = 64          # clips per durable shard
+    deterministic: bool = False    # decode inline, no overlap (tests)
+    fault_inject: float = 0.0      # P(decode failure), failure-path tests
+    fault_seed: int = 0
+    # Reference options the port does not implement yet: set, they raise.
+    quant: str | None = None
+    pallas_pool: bool | str = False
+    stem_s2d: bool = False
+
+    def __post_init__(self):
+        refused = [f"{k}={v!r}" for k, v in (
+            ("quant", self.quant), ("pallas_pool", self.pallas_pool),
+            ("stem_s2d", self.stem_s2d)) if v not in (None, False)]
+        if refused:
+            raise ValueError(
+                f"{', '.join(refused)}: not implemented in eov_tpu_torch "
+                "(int8, the stem-pool kernels and the s2d stem are not "
+                "ported yet)")
+        if self.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
+
+
+def make_feature_fn(weights, cfg: ExtractConfig,
+                    device: torch.device | str = "cuda") -> Callable:
+    """uint8 clips [B, K, H, W, 3] (any device) -> features [B, D] float32
+    on ``device``. ``weights`` is a torchvision-style state_dict
+    (models.resnet)."""
+    dev = resolve_device(device)
+    dtype = _DTYPES[cfg.compute_dtype]
+    if dtype == torch.float32 and dev.type == "cuda":
+        use_full_f32()
+    net = FoldedResNet(
+        fold_batchnorm(weights, cfg.arch), arch=cfg.arch, dtype=dtype,
+        fused_stages=resolve_fused_stages(cfg.fused_stages, arch=cfg.arch),
+    ).to(dev).eval()
+
+    @torch.inference_mode()
+    def feature_fn(frames_u8: torch.Tensor) -> torch.Tensor:
+        frames_u8 = frames_u8.to(dev, non_blocking=True)
+        h, w = frames_u8.shape[-3], frames_u8.shape[-2]
+        if min(h, w) == cfg.scale_size:  # stored at the eval scale
+            x = crop_normalize(frames_u8.contiguous(), crop=cfg.crop_size,
+                               dtype=dtype)
+        else:
+            x = preprocess.preprocess_eval(
+                frames_u8, scale_size=cfg.scale_size,
+                crop_size=cfg.crop_size, dtype=dtype)
+        feats = net(x)  # [B, K, D]
+        return feats.float().mean(dim=1)  # TSN consensus
+
+    return feature_fn
+
+
+def _host_batch(clips: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The decoded batch as a tensor, page-locked when it is bound for the
+    GPU so the feature program's copy is asynchronous."""
+    t = torch.from_numpy(clips)
+    return t.pin_memory() if dev.type == "cuda" else t
+
+
+def extract_features(
+    dataset: VideoDataset,
+    weights,
+    store: FeatureStore,
+    cfg: ExtractConfig = ExtractConfig(),
+    metrics: MetricsWriter | None = None,
+    feature_fn: Callable | None = None,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Extract every record not yet in the store. Returns stats
+    {total, skipped_done, extracted, failed}.
+
+    ``feature_fn`` overrides the ResNet program (tests swap in a cheap
+    one).
+    """
+    dev = resolve_device(device)
+    metrics = metrics or MetricsWriter(None)
+    feature_fn = feature_fn or make_feature_fn(weights, cfg, dev)
+    done = store.done_ids()
+    work = dataset.records
+    todo = [r for r in work if r.video_id not in done]
+    fault_rng = np.random.default_rng(cfg.fault_seed)
+    stats = {"total": len(work), "skipped_done": len(work) - len(todo),
+             "extracted": 0, "failed": 0}
+    since_flush = 0
+    timer = Timer()
+
+    def decode(batch):
+        """-> (batch size, [(records, stacked uint8 clips)] by resolution)."""
+        groups: dict[tuple, tuple[list, list]] = {}
+        for rec in batch:
+            try:
+                if cfg.fault_inject and fault_rng.random() < cfg.fault_inject:
+                    raise IOError(f"injected decode fault: {rec.video_id}")
+                idx = center_indices_np(rec.num_frames, cfg.num_segments)
+                clip = dataset.get_frames(rec, idx)
+            except Exception as e:  # noqa: BLE001 — containment by design
+                stats["failed"] += 1
+                log.warning("decode failed, skipping %s: %s", rec.video_id, e)
+                metrics.write("decode_failure", video_id=rec.video_id,
+                              error=str(e))
+                continue
+            g = groups.setdefault(clip.shape[1:3], ([], []))
+            g[0].append(rec)
+            g[1].append(clip)
+        return len(batch), [(recs, np.stack(clips))
+                            for recs, clips in groups.values()]
+
+    def batches():
+        for start in range(0, len(todo), cfg.batch_clips):
+            yield todo[start:start + cfg.batch_clips]
+
+    def decoded():
+        """Decoded batches, prepared one ahead on a thread unless
+        deterministic."""
+        if cfg.deterministic:
+            for b in batches():
+                yield decode(b)
+            return
+        q: queue.Queue = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                for b in batches():
+                    if not put(decode(b)):
+                        return
+                put(None)
+            except Exception as e:  # noqa: BLE001 — re-raised by the reader
+                put(e)
+
+        t = threading.Thread(target=producer, name="eov-decode", daemon=True)
+        t.start()
+        try:
+            while True:
+                try:
+                    item = q.get(timeout=0.5)
+                except queue.Empty:
+                    if not t.is_alive():
+                        raise RuntimeError("decode thread died") from None
+                    continue
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join()
+
+    def materialize(recs, feats_dev):
+        nonlocal since_flush
+        feats = feats_dev.cpu().numpy()
+        for rec, f in zip(recs, feats):
+            store.put(rec.video_id, f, rec.label)
+        stats["extracted"] += len(recs)
+        since_flush += len(recs)
+        if since_flush >= cfg.flush_every:
+            store.flush()
+            since_flush = 0
+
+    pending = None  # (records, features on device) of the batch in flight
+    for n_batch, groups in decoded():
+        n_ok = 0
+        for recs, clips in groups:
+            feats = feature_fn(_host_batch(clips, dev))  # async on GPU
+            if pending is not None:
+                materialize(*pending)  # the previous batch drains meanwhile
+            pending = (recs, feats)
+            n_ok += len(recs)
+        metrics.write("extract_batch", n=n_ok, failed=n_batch - n_ok,
+                      seconds=timer.lap())
+    if pending is not None:
+        materialize(*pending)
+    store.flush()
+    metrics.write("extract_done", **stats)
+    return stats
