@@ -1,7 +1,7 @@
 """eov_tpu_torch — Embodied One-Shot Video Recognition in PyTorch + CUDA.
 
 The PyTorch port of ``eov_tpu`` (the JAX/Pallas reference, which stays as
-it is). Modules mirror the reference's names. The main path:
+it is). Modules mirror the reference's names. The paths:
 
     uint8 clips -> ops.crop_normalize (CUDA kernel 1)
                 -> models.folded_infer: BN-folded ResNet, stage 1 through
@@ -10,6 +10,11 @@ it is). Modules mirror the reference's names. The main path:
     store -> eval: seeded episodes (episodes, prng — bit-exact to
              jax.random) -> ops.similarity matcher (CUDA kernel 3)
           -> accuracy ± 95% CI
+    train: TSN clips -> ops.preprocess multiscale crops -> models.resnet
+           ResNet with stage 1 and the stage-2 tail through
+           ops.bottleneck_train (CUDA kernels 8 forward, 9 backward), the
+           rest on cuDNN with autograd -> CE -> SGD; utils.checkpoint per
+           epoch; train.evaluate_classifier / one_shot_validate
 
 Each kernel has a plain PyTorch version in the same module; an op takes
 the plain version for a CPU tensor and the kernel for a CUDA tensor.

@@ -1,8 +1,8 @@
-"""ResNet weights for the port: torchvision layout, BN folding, carry-over.
+"""ResNet for the port: weights, BN folding, carry-over, the train model.
 
 The port's weights are a torchvision-style ResNet ``state_dict`` (OIHW conv
-weights, BatchNorm ``weight/bias/running_mean/running_var``) of float32
-tensors. This module gets them three ways:
+weights, BatchNorm ``weight/bias/running_mean/running_var``, an optional
+``fc`` head) of float32 tensors. This module gets them three ways:
 
 * ``from_jax_variables`` — from the JAX reference's flax ``{params,
   batch_stats}`` tree (as numpy arrays): HWIO -> OIHW, flax names ->
@@ -16,6 +16,29 @@ tensors. This module gets them three ways:
 ``eov_tpu/models/resnet.py:fold_batchnorm``): with s = gamma/sqrt(var+eps),
 BN(conv(x)) = conv'(x) + b' where W' = W*s and b' = beta - mean*s, computed
 in float32 exactly as the reference does.
+
+``ResNet`` is the trainable network of the finetune path (counterpart of
+``eov_tpu/models/resnet.py:ResNet`` with ``num_classes``), an ``nn.Module``
+whose ``state_dict`` carries exactly the torchvision names above, so a
+state_dict from ``from_jax_variables`` (a flax TRAIN state, fc included)
+loads into it unchanged. Its numerics are the flax model's:
+
+* NHWC at its surface, channels_last memory inside.
+* Every conv casts its input and kernel to the compute dtype and rounds
+  its output to it (f32 accumulation); BatchNorm runs in f32 on that and
+  outputs f32, so residual adds and block outputs are f32.
+* BatchNorm is flax's: ``(x - mean) * (rsqrt(var + eps) * gamma) + beta``;
+  in training, batch statistics with the BIASED variance ``E[x^2] -
+  E[x]^2`` (clamped at 0) and running averages ``0.9 ra + 0.1 batch``, the
+  biased variance included (``torch.nn.BatchNorm2d`` would store the
+  unbiased one, with the opposite meaning of momentum).
+* ``partial_bn`` (TSN): the stem ``bn1`` trains; every other BN is frozen
+  on its running statistics, affine included (``requires_grad=False``).
+* Global mean pool in f32, dropout (mask from an explicit generator), f32
+  ``fc``.
+* ``remat`` recomputes each residual block in the backward
+  (``torch.utils.checkpoint``); a running-statistics update is applied once,
+  on the first of the two forwards.
 """
 
 from __future__ import annotations
@@ -25,11 +48,15 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from eov_tpu_torch.models import get_arch
 
 __all__ = ["from_jax_variables", "load_state_dict", "check_state_dict",
-           "random_state_dict", "fold_batchnorm", "block_names"]
+           "random_state_dict", "fold_batchnorm", "block_names",
+           "Conv", "BatchNorm", "Bottleneck", "BasicBlock", "ResNet"]
 
 _BN_STATS = ("weight", "bias", "running_mean", "running_var")
 
@@ -135,10 +162,11 @@ def load_state_dict(path: str, arch: str = "resnet50") -> dict:
 
 
 def random_state_dict(arch: str = "resnet50", seed: int = 0,
-                      width: int = 64) -> dict:
+                      width: int = 64, num_classes: int | None = None) -> dict:
     """Seeded random weights: conv kernels ~ N(0, 1/fan_in) (LeCun normal,
     the flax default), BatchNorm at its init (gamma 1, beta 0, mean 0,
-    var 1). Drawn from a ``torch.Generator`` on the CPU."""
+    var 1), and with ``num_classes`` an fc head (weight ~ N(0, 1/fan_in),
+    bias 0). Drawn from a ``torch.Generator`` on the CPU."""
     stage_sizes, bottleneck = get_arch(arch)
     g = torch.Generator().manual_seed(int(seed))
     sd: dict[str, torch.Tensor] = {}
@@ -170,6 +198,10 @@ def random_state_dict(arch: str = "resnet50", seed: int = 0,
             conv(f"{t}.downsample.0", cout, cin, 1)
             bn(f"{t}.downsample.1", cout)
         cin = cout
+    if num_classes is not None:
+        sd["fc.weight"] = torch.randn(num_classes, cin,
+                                      generator=g) / math.sqrt(cin)
+        sd["fc.bias"] = torch.zeros(num_classes)
     return sd
 
 
@@ -197,3 +229,184 @@ def fold_batchnorm(sd: Mapping, arch: str = "resnet50",
                                       f"{t}.downsample.1", eps)
         out[t] = blk
     return out
+
+
+# ------------------------------------------------------- the train model
+
+_BN_MOMENTUM = 0.9  # flax's: ra = 0.9 * ra + (1 - 0.9) * batch
+_BN_EPS = 1e-5
+
+
+class Conv(nn.Module):
+    """Bias-free conv in the compute dtype: input and kernel cast to
+    ``dtype``, output rounded to it (flax ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: int = 0, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                        stride=self.stride, padding=self.padding)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over
+    NCHW; ``frozen`` keeps it on running statistics in training too."""
+
+    def __init__(self, c: int, frozen: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c), requires_grad=not frozen)
+        self.bias = nn.Parameter(torch.zeros(c), requires_grad=not frozen)
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.frozen = frozen
+        self.update_stats = True  # off while remat recomputes the forward
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training and not self.frozen:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                                  0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = _BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + _BN_EPS) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
+class Bottleneck(nn.Module):
+    """ResNet v1.5 bottleneck: 1x1 -> 3x3 (stride here) -> 1x1, + shortcut."""
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype,
+                 frozen: bool):
+        super().__init__()
+        cout = 4 * filters
+        self.conv1 = Conv(cin, filters, 1, dtype=dtype)
+        self.bn1 = BatchNorm(filters, frozen)
+        self.conv2 = Conv(filters, filters, 3, stride, 1, dtype=dtype)
+        self.bn2 = BatchNorm(filters, frozen)
+        self.conv3 = Conv(filters, cout, 1, dtype=dtype)
+        self.bn3 = BatchNorm(cout, frozen)
+        self.downsample = (nn.Sequential(Conv(cin, cout, 1, stride,
+                                              dtype=dtype),
+                                         BatchNorm(cout, frozen))
+                           if cin != cout or stride != 1 else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        r = self.downsample(x) if self.downsample is not None else x.float()
+        return torch.relu(y + r)
+
+
+class BasicBlock(nn.Module):
+    """ResNet basic block (18/34): 3x3 (stride) -> 3x3, + shortcut."""
+
+    def __init__(self, cin: int, filters: int, stride: int, dtype,
+                 frozen: bool):
+        super().__init__()
+        self.conv1 = Conv(cin, filters, 3, stride, 1, dtype=dtype)
+        self.bn1 = BatchNorm(filters, frozen)
+        self.conv2 = Conv(filters, filters, 3, 1, 1, dtype=dtype)
+        self.bn2 = BatchNorm(filters, frozen)
+        self.downsample = (nn.Sequential(Conv(cin, filters, 1, stride,
+                                              dtype=dtype),
+                                         BatchNorm(filters, frozen))
+                           if cin != filters or stride != 1 else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        r = self.downsample(x) if self.downsample is not None else x.float()
+        return torch.relu(y + r)
+
+
+def _remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """block(x) with its activations recomputed in the backward; the
+    recompute applies no running-statistics update."""
+    calls = []
+
+    def run(inp):
+        if not calls:
+            calls.append(1)
+            return block(inp)
+        bns = [m for m in block.modules() if isinstance(m, BatchNorm)]
+        for bn in bns:
+            bn.update_stats = False
+        try:
+            return block(inp)
+        finally:
+            for bn in bns:
+                bn.update_stats = True
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
+class ResNet(nn.Module):
+    """The trainable ResNet (NHWC in, logits or pooled features out)."""
+
+    def __init__(self, arch: str = "resnet50", num_classes: int | None = None,
+                 width: int = 64, dtype=torch.float32,
+                 partial_bn: bool = False, dropout: float = 0.0,
+                 remat: bool = False):
+        super().__init__()
+        self.arch, self.dtype = arch, dtype
+        self.stage_sizes, bottleneck = get_arch(arch)
+        self.dropout, self.remat = dropout, remat
+        block_cls = Bottleneck if bottleneck else BasicBlock
+        self.conv1 = Conv(3, width, 7, 2, 3, dtype=dtype)
+        self.bn1 = BatchNorm(width)  # the stem BN trains under partial_bn
+        cin = width
+        for i, n_blocks in enumerate(self.stage_sizes):
+            blocks = []
+            for j in range(n_blocks):
+                blocks.append(block_cls(cin, width * 2 ** i,
+                                        2 if i > 0 and j == 0 else 1, dtype,
+                                        frozen=partial_bn))
+                cin = width * 2 ** i * (4 if bottleneck else 1)
+            self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
+        self.fc = nn.Linear(cin, num_classes) if num_classes else None
+
+    def stem(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """[N, H, W, 3] -> the pooled stem map, f32 NCHW (channels_last)."""
+        x = x_nhwc.to(self.dtype).permute(0, 3, 1, 2)
+        x = torch.relu(self.bn1(self.conv1(x)))
+        return F.max_pool2d(x, 3, 2, 1)  # implicit -inf padding
+
+    def run_block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        block = self.get_submodule(name)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return _remat(block, x)
+        return block(x)
+
+    def head(self, x: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """Global mean pool (f32) -> dropout -> fc (f32)."""
+        x = x.float().mean(dim=(2, 3))
+        if self.fc is None:
+            return x
+        if self.training and self.dropout > 0:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 1.0 - self.dropout
+            x = torch.where(keep, x / (1.0 - self.dropout),
+                            torch.zeros_like(x))
+        return self.fc(x)
+
+    def forward(self, x_nhwc: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.stem(x_nhwc)
+        for _, _, t in block_names(self.arch):
+            x = self.run_block(t, x)
+        return self.head(x, generator)

@@ -31,7 +31,8 @@ __all__ = ["SOURCES", "build", "build_all", "load", "check", "stream_ptr",
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("crop_normalize", "bottleneck_stack", "episode_scores")
+SOURCES = ("crop_normalize", "bottleneck_stack", "episode_scores",
+           "bottleneck_train")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -12,6 +12,12 @@ episode sequence as the JAX reference, its generator must reproduce
 * ``random_bits(k, shape)[j]`` -> ``x0 ^ x1`` of ``threefry(k, (j >> 32,
   j & 0xFFFFFFFF))`` for flat index j
 * ``uniform`` maps 32 bits to ``[1, 2)`` through the mantissa and subtracts 1.
+* ``randint(k, shape, lo, hi)`` splits k in two, draws 32 bits from each
+  (``hi_bits``, ``lo_bits``) and returns ``lo + ((hi_bits % span) * m +
+  lo_bits % span) % span`` with ``span = hi - lo`` and the multiplier
+  ``m = ((2**16 % span)**2) % span``, all in uint32 arithmetic
+  (``jax._src.random._randint``).
+* ``bernoulli(k, p)`` is ``uniform(k) < p``.
 
 Keys are int64 tensors ``[..., 2]`` holding uint32 values. All arithmetic is
 uint32 arithmetic carried out on int64 tensors masked with ``0xFFFFFFFF``,
@@ -23,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["key", "threefry2x32", "fold_in", "split", "random_bits", "uniform"]
+__all__ = ["key", "threefry2x32", "fold_in", "split", "random_bits", "uniform",
+           "randint", "bernoulli"]
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -90,3 +97,24 @@ def uniform(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     bits = random_bits(k, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return torch.clamp_min(f - 1.0, 0.0)
+
+
+def randint(k: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` (int32) in ``[minval, maxval)``, int64
+    ``[..., *shape]``; ``maxval <= minval`` returns ``minval``."""
+    minval, maxval = int(minval), int(maxval)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    ks = split(k, 2)
+    hi = random_bits(ks[..., 0, :], shape)
+    lo = random_bits(ks[..., 1, :], shape)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = (((hi % span) * mult) & _MASK) + lo % span
+    return minval + (off & _MASK) % span
+
+
+def bernoulli(k: torch.Tensor, p: float = 0.5,
+              shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """``jax.random.bernoulli``: bool ``[..., *shape]``, ``uniform < p``."""
+    return uniform(k, shape) < p
