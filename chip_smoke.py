@@ -1,4 +1,4 @@
-"""GPU smoke test of eov_tpu_torch's main path: build, check, run, report.
+"""GPU smoke test of eov_tpu_torch's main paths: build, check, run, report.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi --query-gpu=name,power.limit``);
-2. build the four CUDA kernel sources from ``eov_tpu_torch/csrc/`` (one
+2. build the five CUDA kernel sources from ``eov_tpu_torch/csrc/`` (one
    nvcc per source, in parallel) and time the build;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time kernel, plain version and, where PyTorch
@@ -15,23 +15,33 @@ Phases (any failure exits non-zero):
    repeats; the microsecond kernels replayed from a CUDA graph). Kernels 8
    and 9 (the train stack's forward and backward) are held at both of
    their shapes (ResNet-50 stage 1 and the stage-2 tail, 96 images) in
-   bf16, and in f32 on 16 images;
+   bf16, and in f32 on 16 images; kernel 7 (the int8 stage-1 stack) bit
+   for bit at 256 images in bf16 and 16 in f32;
 4. run the extraction main path: a synthetic dataset stored at 256x320 (so
    the crop kernel runs), full-width ResNet-50 with seeded random weights,
    K=8, 32 clips per batch, bf16 -> ``extract_features`` into a store ->
    600 5-way 1-shot episodes with ``evaluate``; kernels 1-3 must each
    launch, and the results are checked against the port's plain CPU path;
-5. run the train path: ``cli train`` for one short epoch (64 synthetic
+5. run the int8 + embodied path through the CLI: ``extract --quant int8``
+   of the same set (kernels 1 and 7), ``extract --quant int8
+   --synthetic-virtual`` of a virtual set of the same classes,
+   ``store-info``, ``eval --preset kinetics_embodied --virtual-store``
+   (max fusion, and mean) and the plain eval of the same episodes (kernel
+   3), ``classify --quant int8
+   --embodied`` of other clips of those classes (kernel 7 with the store's
+   recorded scales), ``episode``; the int8 features are held against the
+   bf16 store and the CPU int8 path, the embodied episodes against the CPU;
+6. run the train path: ``cli train`` for one short epoch (64 synthetic
    classes x 2 clips at 256x320 = 4 steps of 32 clips x 3 segments, the
    TrainConfig defaults: ResNet-50, bf16, multiscale crops, dropout 0.5,
    fused stage 1 and stage-2 tail) into a checkpoint, ``cli test`` on it,
    ``one_shot_validate`` over 5 more classes; kernels 8 and 9 must launch
    and the loss stay finite; then 5 steps on one fixed batch must lower the
    loss, and the step is timed with the frames on the card;
-6. one f32 train step pair on the GPU (kernels 8 and 9, cuDNN
+7. one f32 train step pair on the GPU (kernels 8 and 9, cuDNN
    deterministic) against the same two steps on the CPU (plain versions):
    loss, parameters and the stem BN statistics must agree;
-7. print the ``kernels`` JSON line, the card line, and last
+8. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -51,7 +61,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense
+              torch.int8: 1979e12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -244,6 +255,104 @@ def check_stack(dev):
                               repeats=7, inner=1),
         "flops": flops,
         "shape": f"bf16 [{n}, 3136, 64] -> [{n}, 3136, 256], 3 blocks",
+    }
+
+
+def _int8_stage1(gen):
+    """ResNet-50 stage 1 quantized as the int8 path quantizes it: seeded
+    folded blocks, per-channel weight scales, per-site activation maxima
+    (quant_infer.quantize_conv), on the CPU."""
+    from eov_tpu_torch.models.quant_infer import quantize_conv
+
+    amax = {"conv1": 4.0, "conv2": 3.0, "conv3": 3.0, "downsample": 4.0}
+    blocks = []
+    for i in range(3):
+        ci = 64 if i == 0 else 256
+
+        def conv(o, cin, k):
+            return {"weight": torch.randn(o, cin, k, k, generator=gen)
+                    / (cin * k * k) ** 0.5,
+                    "bias": 0.1 * torch.randn(o, generator=gen)}
+
+        fb = {"conv1": conv(64, ci, 1), "conv2": conv(64, 64, 3),
+              "conv3": conv(256, 64, 1)}
+        if i == 0:
+            fb["downsample"] = conv(256, ci, 1)
+        blocks.append({k: quantize_conv(v, amax[k]) for k, v in fb.items()})
+    return blocks
+
+
+def check_int8_stack(dev):
+    """Kernel 7 bit for bit against its plain version (bf16 at 256 images,
+    f32 at 16); the yardstick is the port's int8 walk of the same stage
+    (im2col + torch._int_mm per conv), which the kernel never calls."""
+    from eov_tpu_torch.models.quant_infer import qblock
+    from eov_tpu_torch.ops import bottleneck_int8 as bi
+    from eov_tpu_torch.ops.bottleneck import stack_flops_per_img
+
+    h = w = 56
+    n = 256
+    qblocks = _int8_stage1(torch.Generator().manual_seed(7))
+    packed = [{k: v.to(dev) for k, v in
+               bi.pack_bottleneck_params_int8(qb).items()} for qb in qblocks]
+    sites = []
+    for qb in qblocks:
+        st = {}
+        for c, q in qb.items():
+            p = bi.prepare_site(q)
+            st[c] = {k: (v.to(dev) if torch.is_tensor(v) else v)
+                     for k, v in p.items()}
+        sites.append(st)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.relu(torch.randn(n, h * w, 64, generator=gen, device=dev))
+    xb = x.to(torch.bfloat16)
+    got = bi.bottleneck_stack_int8_cuda(xb, packed, h=h, w=w)
+    want = bi.bottleneck_stack_int8_plain(xb, packed, h=h, w=w)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"int8 stack kernel (bf16) is not bitwise equal to its plain "
+             f"version: max err {err}, "
+             f"{float((got != want).float().mean())} of elements differ")
+    x32 = x[:16].contiguous()
+    g32 = bi.bottleneck_stack_int8_cuda(x32, packed, h=h, w=w)
+    w32 = bi.bottleneck_stack_int8_plain(x32, packed, h=h, w=w)
+    if not torch.equal(g32, w32):
+        fail(f"int8 stack kernel (f32) is not bitwise equal: max err "
+             f"{float((g32 - w32).abs().max())}")
+
+    def walk():
+        y = xb.reshape(n, h, w, 64)
+        for st in sites:
+            y = qblock(y, st, 1, torch.bfloat16)
+        return y
+
+    walk_equal = bool(torch.equal(walk().reshape(n, h * w, -1), got))
+    # int8 multiply-adds x2, counted as the reference's cost estimate does
+    ops = n * stack_flops_per_img(packed, h * w)
+    io = n * h * w * (64 + 256) * 2 + sum(
+        v.numel() * v.element_size() for b in packed for v in b.values())
+    b, by = bound(io, ops, torch.int8)
+    return {
+        "name": "bottleneck_int8", "route": "cuda",
+        "source": "eov_tpu_torch/csrc/bottleneck_int8.cu",
+        "replaces": "eov_tpu/ops/pallas_bottleneck_int8.py:235",
+        "max_abs_err": err, "max_abs_err_f32": float((g32 - w32).abs().max()),
+        "tolerance": "bitwise (torch.equal), bf16 and f32",
+        "nonzero_share": float((want != 0).float().mean()),
+        "walk_bitwise_equal": walk_equal,
+        "ms": cuda_ms(lambda: bi.bottleneck_stack_int8_cuda(xb, packed, h=h,
+                                                            w=w),
+                      repeats=7, inner=1),
+        "plain_ms": cuda_ms(lambda: bi.bottleneck_stack_int8_plain(
+            xb, packed, h=h, w=w), repeats=5, inner=1),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(walk, repeats=5, inner=1),
+        "library_call": "the port's int8 walk of stage 1: per conv, requant, "
+                        "im2col, torch._int_mm, dequant (not called by the "
+                        "kernel)",
+        "ops": ops, "bytes": io,
+        "shape": f"bf16 [{n}, 3136, 64] -> [{n}, 3136, 256], 3 int8 blocks",
     }
 
 
@@ -604,7 +713,196 @@ def main_path(dev, gpu):
         "cosine_vs_cpu_f32": {"gpu_f32": cos32, "gpu_bf16_main": cos16},
         "episode_agreement_vs_cpu": agree,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-    }, str(res)
+    }, str(res), batch
+
+
+# ------------------------------------------------------ int8 + embodied
+
+def int8_embodied_path(dev, gpu, batch):
+    """The int8 and embodied commands through the CLI, in-process:
+    extract --quant int8 (the main path's set), a virtual set of the same
+    classes, store-info, embodied and plain eval, classify --quant int8
+    --embodied of other clips of those classes, episode. ``batch`` is the
+    main path's 32 clips on the card, for the feature-program times."""
+    from eov_tpu_torch.data.store import FeatureStore
+    from eov_tpu_torch.embodied import align_virtual_bank
+    from eov_tpu_torch.eval import EvalConfig, evaluate
+    from eov_tpu_torch.extract import (ExtractConfig, make_feature_fn,
+                                       quant_calibration)
+    from eov_tpu_torch.models.quant_infer import conv_sites
+    from eov_tpu_torch.models.resnet import random_state_dict
+    from eov_tpu_torch.ops import bottleneck_int8, crop_normalize, similarity
+
+    work = os.path.join(WORK, "int8")
+    os.makedirs(work)
+    weights = random_state_dict("resnet50", seed=0)
+    params = os.path.join(work, "resnet50_seed0.npz")
+    np.savez(params, **{k: v.numpy() for k, v in weights.items()})
+    real, virt = os.path.join(work, "real"), os.path.join(work, "virt")
+    common = ["--preset", "tpu_batched", "--device", "cuda", "--params",
+              params, "--synthetic-classes", "12", "--synthetic-height",
+              "256", "--synthetic-width", "320"]
+    kernels = {"crop_normalize": crop_normalize.crop_normalize,
+               "bottleneck_int8": bottleneck_int8.fused_bottleneck_stack_int8,
+               "episode_scores": similarity.episode_class_scores}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = json.loads(_quiet_cli(["extract", *common, "--store", real,
+                                   "--synthetic-clips", "6", "--quant",
+                                   "int8"])[-1])
+    extract_s = time.perf_counter() - t0
+    vstats = json.loads(_quiet_cli(["extract", *common, "--store", virt,
+                                    "--synthetic-clips", "4", "--quant",
+                                    "int8", "--synthetic-virtual"])[-1])
+    info = [json.loads(_quiet_cli(["store-info", "--store", st])[-1])
+            for st in (real, virt)]
+    per_ep = {}
+    t0 = time.perf_counter()
+    for tag, extra in (("embodied", ["--preset", "kinetics_embodied",
+                                     "--virtual-store", virt]),
+                       ("embodied_mean", ["--preset", "kinetics_embodied",
+                                          "--virtual-store", virt,
+                                          "--fusion", "mean"]),
+                       ("plain", ["--preset", "ucf101_600"])):
+        per_ep[tag] = os.path.join(work, f"{tag}.json")
+        _quiet_cli(["eval", "--device", "cuda", "--store", real, *extra,
+                    "--per-episode-out", per_ep[tag]])
+    eval_s = time.perf_counter() - t0
+    preds = os.path.join(work, "classify.jsonl")
+    t0 = time.perf_counter()
+    _quiet_cli(["classify", *common, "--seed", "1", "--synthetic-clips",
+                "2", "--store", real, "--quant", "int8", "--embodied",
+                "--virtual-store", virt, "--out", preds])
+    classify_s = time.perf_counter() - t0
+    episode = json.loads(_quiet_cli(["episode", *common,
+                                     "--synthetic-clips", "2"])[-1])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    zero = [n for n, c in launches.items() if c == 0]
+    if zero:
+        fail(f"kernels never launched on the int8 + embodied path: {zero}")
+    if stats["extracted"] != 72 or vstats["extracted"] != 48:
+        fail(f"int8 extraction incomplete: {stats}, {vstats}")
+    if [i["quant"] for i in info] != ["int8", "int8"] or not all(
+            i["quant_calib"] for i in info):
+        fail(f"store-info does not record int8 with scales: {info}")
+
+    # The recorded calibration: the reference's site names, read back as
+    # written, and what the same calibration gives again.
+    store = FeatureStore(real)
+    recorded = store.quant_calib()
+    with open(os.path.join(real, "manifest.json")) as f:
+        on_disk = json.load(f)["quant_calib"]
+    cfg8 = ExtractConfig(num_segments=8, batch_clips=32, quant="int8")
+    again = quant_calibration(weights, cfg8, device=dev)
+    calib_rel = max(abs(again[k] - v) / v for k, v in recorded.items())
+    if recorded != on_disk or set(recorded) != set(conv_sites("resnet50")) \
+            or calib_rel > 1e-5:
+        fail(f"quant_calib not recorded as computed: {len(recorded)} sites, "
+             f"recomputed rel diff {calib_rel}")
+
+    # int8 features against the bf16 main path's store and the CPU int8
+    # path (same scales).
+    cos = torch.nn.functional.cosine_similarity
+    feats8 = store.load_all()
+    feats16 = FeatureStore(os.path.join(WORK, "store")).load_all()
+    ids = sorted(feats8)
+    a = torch.from_numpy(np.stack([feats8[v][0] for v in ids]))
+    b = torch.from_numpy(np.stack([feats16[v][0] for v in ids]))
+    cos_bf16 = float(cos(a, b, dim=1).min())
+    from eov_tpu_torch.data.datasets import SyntheticVideoDataset
+    from eov_tpu_torch.data.segments import center_indices_np
+
+    ds = SyntheticVideoDataset(n_classes=12, clips_per_class=6, height=256,
+                               width=320, seed=0)
+    recs = ds.records[:2]
+    clips = torch.from_numpy(np.stack(
+        [ds.get_frames(r, center_indices_np(r.num_frames, 8))
+         for r in recs]))
+    cpu8 = make_feature_fn(weights, cfg8, "cpu", act_max=recorded)(clips)
+    gpu8 = torch.from_numpy(np.stack([feats8[r.video_id][0] for r in recs]))
+    cos_cpu = float(cos(gpu8, cpu8, dim=1).min())
+    if cos_bf16 < 0.99 or cos_cpu < 0.9999:
+        fail(f"int8 features disagree: cosine vs bf16 {cos_bf16} (>= 0.99), "
+             f"vs the CPU int8 path {cos_cpu} (>= 0.9999)")
+
+    # Embodied eval against the CPU path, with both fusion rules; the bank
+    # must change some episode. Under 'max' it need not: on this set every
+    # virtual clip is further from a query than its class's real clip (the
+    # virtual render has no moving square), so the prototype rule ('mean'),
+    # where every virtual member enters the class score, shows it.
+    per = {}
+    for tag, path in per_ep.items():
+        with open(path) as f:
+            per[tag] = np.asarray(json.load(f)["per_episode"], np.float32)
+    vstore = FeatureStore(virt)
+    bank = align_virtual_bank(store.class_names, vstore.class_names,
+                              vstore.to_table("cpu"))
+    agree = {}
+    for tag, fusion in (("embodied", "max"), ("embodied_mean", "mean")):
+        res_cpu = evaluate(store.to_table("cpu"),
+                           EvalConfig(embodied=True, fusion=fusion),
+                           virtual=bank)
+        agree[tag] = float(np.mean(res_cpu.per_episode == per[tag]))
+    changed = {tag: int((per[tag] != per["plain"]).sum())
+               for tag in ("embodied", "embodied_mean")}
+    if len(per["embodied"]) != 600 or min(agree.values()) < 0.99 or \
+            changed["embodied_mean"] == 0:
+        fail(f"embodied eval bad: {len(per['embodied'])} episodes, "
+             f"agreement with the CPU {agree}, episodes changed by the "
+             f"virtual bank {changed}")
+    with open(preds) as f:
+        cls = [json.loads(line) for line in f]
+    truth = [c["video_id"].split("_")[1] for c in cls]
+    cls_acc = float(np.mean([c["pred_class"].endswith(t[1:])
+                             for c, t in zip(cls, truth)]))
+    if len(cls) != 24 or not np.isfinite([c["score"] for c in cls]).all():
+        fail(f"classify output bad: {len(cls)} lines")
+    if set(episode) != {"n_way", "accuracy", "preds", "truth"}:
+        fail(f"episode output bad: {episode}")
+
+    # The int8 and bf16 feature programs on the same 32 clips on the card.
+    cfg16 = ExtractConfig(num_segments=8, batch_clips=32)
+    fn8 = make_feature_fn(weights, cfg8, dev, act_max=recorded)
+    fn16 = make_feature_fn(weights, cfg16, dev)
+    ms8 = cuda_ms(lambda: fn8(batch), repeats=5, inner=1)
+    ms16 = cuda_ms(lambda: fn16(batch), repeats=5, inner=1)
+    # Where the int8 program's device time goes: one call under the
+    # profiler, device time summed by kernel name (the top eight).
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn8(batch)
+        torch.cuda.synchronize()
+    events = sorted(prof.key_averages(), key=lambda e: e.device_time_total,
+                    reverse=True)
+    int8_top = {e.key[:80]: {"ms": e.device_time_total / 1e3,
+                             "calls": e.count} for e in events[:8]}
+    int8_device_ms = sum(e.device_time_total for e in events) / 1e3
+    return {
+        "gpu": gpu,
+        "config": "tpu_batched extract settings (K=8, 32 clips/batch, "
+                  "bf16) with --quant int8 (synthetic calibration), "
+                  "ResNet-50 seed-0 weights via --params; 12 classes x 6 "
+                  "clips real, x 4 virtual, 256x320; 600 episodes 5-way "
+                  "1-shot; classify 24 held-out clips (seed 1)",
+        "launches": launches,
+        "extract_s": extract_s, "extract_clips_per_s": 72 / extract_s,
+        "eval_s_embodied_and_plain": eval_s, "classify_s": classify_s,
+        "store_info": info,
+        "calib_sites": len(recorded), "calib_recompute_rel_diff": calib_rel,
+        "cosine_int8_vs_bf16_min": cos_bf16,
+        "cosine_int8_gpu_vs_cpu_min": cos_cpu,
+        "accuracy": {tag: float(v.mean()) for tag, v in per.items()},
+        "embodied_agreement_vs_cpu": agree,
+        "episodes_changed_by_virtual_bank": changed,
+        "classify_accuracy": cls_acc, "episode": episode,
+        "feature_program_ms_per_32_clips": {"int8": ms8, "bf16": ms16},
+        "int8_program_profile": {"device_ms_total": int8_device_ms,
+                                 "top_kernels": int8_top},
+    }
 
 
 # ------------------------------------------------------------ train path
@@ -807,7 +1105,8 @@ def main() -> int:
           flush=True)
 
     rows = []
-    for check in (check_crop, check_stack, check_matcher, check_train_stack):
+    for check in (check_crop, check_stack, check_matcher, check_int8_stack,
+                  check_train_stack):
         found = check(dev)
         for row in found if isinstance(found, list) else [found]:
             row["gpu"] = gpu
@@ -815,16 +1114,20 @@ def main() -> int:
                               **row}), flush=True)
             rows.append(row)
 
-    summary, acc_line = main_path(dev, gpu)
+    summary, acc_line, batch = main_path(dev, gpu)
     print(json.dumps({"main_path": summary}), flush=True)
     print(acc_line, flush=True)
+    int8 = int8_embodied_path(dev, gpu, batch)
+    del batch
+    print(json.dumps({"int8_embodied_path": int8}), flush=True)
     train = train_path(dev, gpu)
     print(json.dumps({"train_path": train}), flush=True)
     print(json.dumps({"gpu_vs_cpu_f32_train_step": gpu_vs_cpu_step(dev)}),
           flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    launches = {**summary["launches"], **train["launches"]}
+    launches = {**summary["launches"], **train["launches"],
+                "bottleneck_int8": int8["launches"]["bottleneck_int8"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

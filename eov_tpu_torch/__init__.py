@@ -6,10 +6,16 @@ it is). Modules mirror the reference's names. The paths:
     uint8 clips -> ops.crop_normalize (CUDA kernel 1)
                 -> models.folded_infer: BN-folded ResNet, stage 1 through
                    ops.bottleneck (CUDA kernel 2), the rest on cuDNN
+                   or, with quant="int8", models.quant_infer: the int8
+                   forward, stage 1 through ops.bottleneck_int8 (CUDA
+                   kernel 7), the other convs int8 im2col matmuls
                 -> TSN mean consensus -> data.store.FeatureStore
     store -> eval: seeded episodes (episodes, prng — bit-exact to
-             jax.random) -> ops.similarity matcher (CUDA kernel 3)
-          -> accuracy ± 95% CI
+             jax.random), with embodied eval the aligned virtual bank
+             (embodied) appended to each support -> ops.similarity
+             matcher (CUDA kernel 3) -> accuracy ± 95% CI
+    classify: new clips featurized as the support store was (its recorded
+              precision and int8 scales) -> the matcher over every class
     train: TSN clips -> ops.preprocess multiscale crops -> models.resnet
            ResNet with stage 1 and the stage-2 tail through
            ops.bottleneck_train (CUDA kernels 8 forward, 9 backward), the

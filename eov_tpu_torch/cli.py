@@ -1,22 +1,33 @@
-"""Command line: ``python -m eov_tpu_torch.cli {extract,eval,train,test}``.
+"""Command line: ``python -m eov_tpu_torch.cli {extract,eval,classify,
+episode,store-info,train,test}``.
 
-Counterpart of ``eov_tpu/cli.py``'s ``extract``, ``eval``, ``train`` and
-``test``:
+Counterpart of ``eov_tpu/cli.py``'s commands of the same names:
 
-    extract — dataset -> clip features into a FeatureStore (resumable)
-    eval    — seeded N-way K-shot episodes over a store, mean ± 95% CI;
-              the last line printed is ``accuracy: MM.MM% +/- C.CC%``
-    train   — TSN finetune of the backbone (train.py), one checkpoint per
-              epoch under ``--out`` (utils/checkpoint.py); resumes from the
-              newest ``step_N`` there, which takes precedence over the
-              ``--params`` warm start
-    test    — video-level top-1 of a train run's checkpoint (``--params
-              <run dir>``, ``--select latest|best``); the last line printed
-              is ``{"top1": ..., "n": ...}``
+    extract    — dataset -> clip features into a FeatureStore (resumable);
+                 ``--quant int8`` extracts with the int8 forward and records
+                 its calibration (``--quant-calib synthetic|dataset``) in
+                 the store
+    eval       — seeded N-way K-shot episodes over a store, mean ± 95% CI;
+                 ``--embodied --virtual-store S`` (or the
+                 ``kinetics_embodied`` preset) adds S's virtual clips to
+                 each class's support; the last line printed is
+                 ``accuracy: MM.MM% +/- C.CC%``
+    classify   — featurize new clips and assign each the support store's
+                 best class (one JSON line per clip); queries go through
+                 the store's recorded precision and int8 calibration
+    episode    — one N-way 1-shot episode from raw clips, end to end
+    store-info — a store's merged summary as one JSON line
+    train      — TSN finetune of the backbone (train.py), one checkpoint per
+                 epoch under ``--out`` (utils/checkpoint.py); resumes from
+                 the newest ``step_N`` there, which takes precedence over
+                 the ``--params`` warm start
+    test       — video-level top-1 of a train run's checkpoint (``--params
+                 <run dir>``, ``--select latest|best``); the last line
+                 printed is ``{"top1": ..., "n": ...}``
 
-All run on the GPU (``--device cuda``, the default) and refuse to run
-without one unless ``--device cpu`` is given. Stores are interchangeable
-with the reference package's.
+All but store-info run on the GPU (``--device cuda``, the default) and
+refuse to run without one unless ``--device cpu`` is given. Stores are
+interchangeable with the reference package's.
 
 Not ported yet, and refused: ``train --multichip`` (multi-GPU) and
 ``train --val-class-split`` (class splits).
@@ -51,7 +62,7 @@ def _load_dataset(args):
         n_classes=args.synthetic_classes,
         clips_per_class=args.synthetic_clips,
         height=args.synthetic_height, width=args.synthetic_width,
-        seed=args.seed,
+        seed=args.seed, virtual=getattr(args, "synthetic_virtual", False),
     )
 
 
@@ -84,34 +95,58 @@ def _fused_stages(spec: str):
             "list like '1' / '1,2'") from None
 
 
+def _extract_config(args):
+    """The preset's ExtractConfig with the command's overrides."""
+    from eov_tpu_torch.config import get_preset
+
+    cfg = get_preset(args.preset).extract
+    overrides = {k: v for k, v in (
+        ("arch", args.arch), ("num_segments", args.num_segments),
+        ("batch_clips", args.batch),
+        ("fused_stages", getattr(args, "fused_stages", None)),
+        ("scale_size", args.scale_size), ("crop_size", args.crop_size),
+    ) if v is not None}
+    quant = getattr(args, "quant", None)
+    if quant is not None:
+        overrides["quant"] = None if quant == "off" else quant
+    return dataclasses.replace(cfg, **overrides)
+
+
 def cmd_extract(args) -> int:
-    from eov_tpu_torch.config import get_preset, resolved_dict
+    from eov_tpu_torch.config import resolved_dict
     from eov_tpu_torch.data.store import FeatureStore
-    from eov_tpu_torch.extract import extract_features
+    from eov_tpu_torch.extract import extract_features, quant_calibration
     from eov_tpu_torch.utils.device import resolve_device
     from eov_tpu_torch.utils.metrics import MetricsWriter
 
     device = resolve_device(args.device)
-    cfg = get_preset(args.preset).extract
-    overrides = {k: v for k, v in (
-        ("arch", args.arch), ("num_segments", args.num_segments),
-        ("batch_clips", args.batch), ("fused_stages", args.fused_stages),
-        ("scale_size", args.scale_size), ("crop_size", args.crop_size),
-    ) if v is not None}
-    cfg = dataclasses.replace(cfg, **overrides)
+    cfg = _extract_config(args)
+    if args.quant_calib is not None:
+        if not cfg.quant:
+            raise SystemExit("--quant-calib only applies with --quant int8")
+        cfg = dataclasses.replace(cfg, quant_calib=args.quant_calib)
     dataset = _load_dataset(args)
     weights = _load_weights(args, cfg.arch)
+    act_max = None
+    if cfg.quant:
+        # The int8 scales are computed once and recorded in the store, so
+        # classify featurizes queries with this exact program.
+        act_max = quant_calibration(
+            weights, cfg, dataset if cfg.quant_calib == "dataset" else None,
+            device)
     try:
         store = FeatureStore(args.store, class_names=list(dataset.class_names),
-                             dtype=args.store_dtype, quant=None)
+                             dtype=args.store_dtype, quant=cfg.quant)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    if act_max is not None:
+        store.set_quant_calib(act_max)
     metrics = MetricsWriter(args.metrics)
     metrics.write("config", command="extract", config=resolved_dict(cfg),
                   device=str(device))
     try:
         stats = extract_features(dataset, weights, store, cfg, metrics,
-                                 device=device)
+                                 device=device, act_max=act_max)
     finally:
         metrics.close()
     print(json.dumps(stats))
@@ -123,24 +158,45 @@ def cmd_eval(args) -> int:
 
     from eov_tpu_torch.config import get_preset, resolved_dict
     from eov_tpu_torch.data.store import FeatureStore
+    from eov_tpu_torch.embodied import align_virtual_bank
     from eov_tpu_torch.eval import evaluate
     from eov_tpu_torch.utils.device import resolve_device
     from eov_tpu_torch.utils.metrics import MetricsWriter
 
     device = resolve_device(args.device)
     preset = get_preset(args.preset)
-    if preset.embodied:
-        raise SystemExit(f"preset {preset.name} needs embodied eval, which "
-                         "is not ported yet")
     overrides = {f: getattr(args, f) for f in (
         "n_way", "k_shot", "n_query", "n_episodes", "metric", "fusion",
         "seed") if getattr(args, f) is not None}
+    if args.embodied:
+        overrides["embodied"] = True
     cfg = dataclasses.replace(preset.eval, **overrides)
-    table = FeatureStore(args.store).to_table(device)
+    store = FeatureStore(args.store)
+    table = store.to_table(device)
+    virtual = None
+    if cfg.embodied:
+        if not args.virtual_store:
+            raise SystemExit("--virtual-store required for embodied eval")
+        vstore = FeatureStore(args.virtual_store)
+        # Real and virtual features are compared in one similarity space:
+        # a recorded precision mismatch between the banks is refused.
+        rq, rk = store.recorded_quant()
+        vq, vk = vstore.recorded_quant()
+        if rk and vk and rq != vq:
+            raise SystemExit(
+                f"embodied eval mixes precisions: --store was extracted "
+                f"with quant={rq or 'off'} but --virtual-store with "
+                f"quant={vq or 'off'}; re-extract one bank so both match")
+        try:
+            virtual = align_virtual_bank(store.class_names,
+                                         vstore.class_names,
+                                         vstore.to_table(device))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     metrics = MetricsWriter(args.metrics)
     metrics.write("config", command="eval", config=resolved_dict(cfg),
                   device=str(device))
-    res = evaluate(table, cfg)
+    res = evaluate(table, cfg, virtual=virtual)
     metrics.write("eval_result", mean_acc=res.mean_acc, ci95=res.ci95,
                   n_episodes=len(res.per_episode))
     metrics.close()
@@ -159,6 +215,210 @@ def cmd_eval(args) -> int:
             json.dump(doc, f)
         print(f"per-episode accuracies -> {args.per_episode_out}")
     print(res)  # "accuracy: MM.MM% +/- C.CC%"
+    return 0
+
+
+def _class_scores(query, feats, mask, *, metric: str, fusion: str):
+    """Scores [Q, C] of every query against every class of a whole split
+    (features [C, M, D], mask [C, M]) as one episode of the matcher (kernel
+    3 on the GPU), in chunks of queries and classes that keep each call
+    within the kernel's row limit."""
+    import torch
+
+    from eov_tpu_torch.ops import similarity
+
+    c, m = feats.shape[:2]
+    n_chunk = max(1, min(c, similarity.MAX_ROWS // 2 // m))
+    q_chunk = similarity.MAX_ROWS - n_chunk * m
+    if q_chunk < 1:
+        raise SystemExit(f"{m} support members per class exceed the "
+                         f"matcher's {similarity.MAX_ROWS} rows")
+    cols = []
+    for c0 in range(0, c, n_chunk):
+        f, k = feats[None, c0:c0 + n_chunk], mask[None, c0:c0 + n_chunk]
+        cols.append(torch.cat([
+            similarity.episode_class_scores(
+                query[None, q0:q0 + q_chunk], f, k, metric=metric,
+                fusion=fusion)[0]
+            for q0 in range(0, query.shape[0], q_chunk)]))
+    return torch.cat(cols, dim=1)
+
+
+def cmd_classify(args) -> int:
+    """Classify query clips against a one-shot support store: every clip of
+    ``--store`` is a support example of its class (plus, with
+    ``--embodied``, the aligned clips of ``--virtual-store``); each query
+    clip of the dataset is featurized as the store was and takes the class
+    with the best fused similarity. One JSON line per clip; with labels
+    over the same class names an accuracy line goes to stderr."""
+    import numpy as np
+    import torch
+
+    from eov_tpu_torch.config import get_preset, resolved_dict
+    from eov_tpu_torch.data.store import FeatureStore, MemoryFeatureStore
+    from eov_tpu_torch.embodied import union_support
+    from eov_tpu_torch.extract import extract_features
+    from eov_tpu_torch.utils.device import resolve_device
+    from eov_tpu_torch.utils.metrics import MetricsWriter
+
+    device = resolve_device(args.device)
+    preset = get_preset(args.preset)
+    cfg = _extract_config(args)
+    # The matcher's rules default to the preset's eval protocol.
+    metric = args.metric or preset.eval.metric
+    fusion = args.fusion or preset.eval.fusion
+    store = FeatureStore(args.store)
+    class_names = store.class_names
+    # The full class axis: a class with no clips stays a masked row.
+    table = store.to_table(device, n_classes=len(class_names) or None)
+    if args.embodied and not args.virtual_store:
+        raise SystemExit("--virtual-store required for --embodied")
+    vstore = FeatureStore(args.virtual_store) if args.embodied else None
+    # Provenance: queries featurized at another precision than a store's
+    # would skew every similarity; a recorded mismatch is refused, a store
+    # that records nothing is warned about.
+    for s, role in ((store, "support"), (vstore, "virtual")):
+        if s is None:
+            continue
+        rq, known = s.recorded_quant()
+        if known and rq != cfg.quant:
+            raise SystemExit(
+                f"{role} store {s.root} was extracted with "
+                f"quant={rq or 'off'} but queries would be featurized with "
+                f"quant={cfg.quant or 'off'}; pass --quant {rq or 'off'} or "
+                "re-extract the store at the query precision")
+        if not known and cfg.quant:
+            print(f"warning: {role} store {s.root} records no extraction "
+                  "precision; cannot verify it matches --quant "
+                  f"{cfg.quant}", file=sys.stderr)
+        elif cfg.quant and s.quant_calib() is None:
+            print(f"warning: {role} store {s.root} records no calibration "
+                  "scales; queries are featurized with locally recalibrated "
+                  "(synthetic-fixture) scales, which may not match the "
+                  "program that produced it", file=sys.stderr)
+    # Queries run the support store's exact int8 program: its scales.
+    act_max = store.quant_calib() if cfg.quant else None
+    if act_max is not None and vstore is not None:
+        vcal = vstore.quant_calib()
+        if vcal is not None and vcal != act_max:
+            raise SystemExit(
+                f"--store and --virtual-store record different int8 "
+                "calibrations; their features come from two programs — "
+                "re-extract one with the other's scales")
+    try:
+        feats, mask = union_support(
+            table, class_names, vstore.class_names if vstore else None,
+            vstore.to_table(device) if vstore else None)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+    weights = _load_weights(args, cfg.arch)
+    dataset = _load_dataset(args)
+    qstore = MemoryFeatureStore(class_names=list(dataset.class_names))
+    stats = extract_features(dataset, weights, qstore, cfg, device=device,
+                             act_max=act_max)
+    qfeats = qstore.load_all()
+    if not qfeats:
+        raise SystemExit("no query clips could be featurized")
+    ids = sorted(qfeats)
+    query = torch.from_numpy(np.stack([qfeats[v][0] for v in ids])).to(device)
+    if query.shape[-1] != feats.shape[-1]:
+        raise SystemExit(
+            f"query features are {query.shape[-1]}-d but the support store "
+            f"holds {feats.shape[-1]}-d; use the same --arch/--params as "
+            "extract")
+    scores = _class_scores(query, feats, mask, metric=metric, fusion=fusion)
+    # A class with no support member (real or virtual) is not assignable.
+    eligible = mask.sum(dim=1) > 0
+    if not bool(eligible.any()):
+        raise SystemExit("support store has no classes with any clips")
+    scores[:, ~eligible] = -float("inf")
+    preds = scores.argmax(dim=-1).cpu().numpy()
+    best = scores.max(dim=-1).values.cpu().numpy()
+
+    metrics = MetricsWriter(args.metrics)
+    metrics.write("config", command="classify", config=resolved_dict(cfg),
+                  metric=metric, fusion=fusion, device=str(device),
+                  n_support_classes=len(class_names), n_queries=len(ids),
+                  failed=stats["failed"])
+    if stats["failed"]:
+        print(f"warning: {stats['failed']} of {stats['total']} query clips "
+              "failed to decode and are missing from the output",
+              file=sys.stderr)
+    lines = [json.dumps({"video_id": vid,
+                         "pred_class": class_names[int(preds[i])],
+                         "score": float(best[i])})
+             for i, vid in enumerate(ids)]
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("".join(line + "\n" for line in lines))
+    else:
+        print("\n".join(lines))
+    name_to_idx = {c: i for i, c in enumerate(class_names)}
+    truths = [name_to_idx.get(dataset.class_names[qfeats[v][1]]) for v in ids]
+    known = [(p, t) for p, t in zip(preds, truths) if t is not None]
+    if known:
+        acc = float(np.mean([p == t for p, t in known]))
+        metrics.write("classify_result", accuracy=acc, n=len(known),
+                      failed=stats["failed"])
+        print(f"labeled queries: {len(known)}/{len(ids)}, accuracy "
+              f"{acc * 100:.2f}%", file=sys.stderr)
+    metrics.close()
+    return 0
+
+
+def cmd_episode(args) -> int:
+    """One N-way 1-shot episode from raw clips: per class one support and
+    one query clip (seeded), featurized one at a time, scored by the
+    matcher. Prints ``{"n_way", "accuracy", "preds", "truth"}``."""
+    import numpy as np
+    import torch
+
+    from eov_tpu_torch.data.segments import center_indices_np
+    from eov_tpu_torch.extract import make_feature_fn
+    from eov_tpu_torch.ops.similarity import episode_class_scores
+    from eov_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = _extract_config(args)
+    dataset = _load_dataset(args)
+    fn = make_feature_fn(_load_weights(args, cfg.arch), cfg, device)
+    n_way = args.n_way or 5
+    rng = np.random.default_rng(args.seed)
+    by_class: dict[int, list] = {}
+    for r in dataset.records:
+        by_class.setdefault(r.label, []).append(r)
+    classes = rng.choice(sorted(by_class), size=n_way, replace=False)
+
+    def feat(rec):
+        idx = center_indices_np(rec.num_frames, cfg.num_segments)
+        return fn(torch.from_numpy(dataset.get_frames(rec, idx)[None]))[0]
+
+    sup, qry = [], []
+    for c in classes:
+        picks = rng.choice(len(by_class[c]), size=2, replace=False)
+        sup.append(feat(by_class[c][picks[0]]))
+        qry.append(feat(by_class[c][picks[1]]))
+    support = torch.stack(sup)[None, :, None]  # [1, N, 1, D]
+    mask = torch.ones(support.shape[:3], device=support.device)
+    preds = episode_class_scores(torch.stack(qry)[None], support,
+                                 mask).argmax(dim=-1)[0].cpu().numpy()
+    truth = list(range(n_way))
+    acc = float((preds == np.array(truth)).mean())
+    print(json.dumps({"n_way": n_way, "accuracy": acc,
+                      "preds": preds.tolist(), "truth": truth}))
+    return 0
+
+
+def cmd_store_info(args) -> int:
+    """A store's merged summary (clips, classes, dtype, quant, shards,
+    bytes, ...) as one JSON line."""
+    from eov_tpu_torch.data.store import FeatureStore
+
+    if not os.path.isdir(args.store):
+        # Read-only: never create the root of a mistyped path.
+        raise SystemExit(f"no feature store at {args.store}")
+    print(json.dumps(FeatureStore(args.store).summary()))
     return 0
 
 
@@ -354,6 +614,29 @@ def cmd_test(args) -> int:
     return 0
 
 
+def _add_clips(p: argparse.ArgumentParser) -> None:
+    """Dataset and feature-program flags (extract, classify, episode)."""
+    p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
+    p.add_argument("--synthetic-classes", type=int, default=10)
+    p.add_argument("--synthetic-clips", type=int, default=8)
+    p.add_argument("--synthetic-height", type=int, default=128)
+    p.add_argument("--synthetic-width", type=int, default=160)
+    p.add_argument("--synthetic-virtual", action="store_true",
+                   dest="synthetic_virtual",
+                   help="virtual-agent rendering (UnrealAction analog)")
+    p.add_argument("--params", default=None,
+                   help="torchvision .pth/.pt or .npz state_dict")
+    p.add_argument("--arch", default=None,
+                   help="backbone arch (resnet18/34/50/101/152)")
+    p.add_argument("--num-segments", type=int, default=None)
+    p.add_argument("--batch", type=int, default=None,
+                   help="clips per device batch (default: the preset's)")
+    p.add_argument("--scale-size", type=int, default=None,
+                   help="eval short-side scale (default: the preset's)")
+    p.add_argument("--crop-size", type=int, default=None,
+                   help="eval center crop (default: the preset's)")
+
+
 def _add_train_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
     p.add_argument("--synthetic-classes", type=int, default=10)
@@ -380,29 +663,25 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    quant_help = ("backbone precision: 'off' = the bf16/f32 forward "
+                  "(default), 'int8' = the int8 forward (stage 1 through "
+                  "kernel 7)")
+
     ex = sub.add_parser("extract", help="dataset -> clip feature store")
     _add_common(ex)
-    ex.add_argument("--dataset", default="synthetic", choices=["synthetic"])
-    ex.add_argument("--synthetic-classes", type=int, default=10)
-    ex.add_argument("--synthetic-clips", type=int, default=8)
-    ex.add_argument("--synthetic-height", type=int, default=128)
-    ex.add_argument("--synthetic-width", type=int, default=160)
-    ex.add_argument("--params", default=None,
-                    help="torchvision .pth/.pt or .npz state_dict")
-    ex.add_argument("--arch", default=None,
-                    help="backbone arch (resnet18/34/50/101/152)")
-    ex.add_argument("--num-segments", type=int, default=None)
-    ex.add_argument("--batch", type=int, default=None,
-                    help="clips per device batch (default: the preset's)")
-    ex.add_argument("--scale-size", type=int, default=None,
-                    help="eval short-side scale (default: the preset's)")
-    ex.add_argument("--crop-size", type=int, default=None,
-                    help="eval center crop (default: the preset's)")
+    _add_clips(ex)
     ex.add_argument("--fused-stages", type=_fused_stages, default=None,
                     metavar="SPEC",
                     help="'auto' (default), 'none', or a list like '1,2'")
     ex.add_argument("--store-dtype", default=None,
                     choices=("float32", "float16"))
+    ex.add_argument("--quant", default=None, choices=("off", "int8"),
+                    help=quant_help)
+    ex.add_argument("--quant-calib", dest="quant_calib", default=None,
+                    choices=("synthetic", "dataset"),
+                    help="int8 scale calibration: deterministic synthetic "
+                         "fixtures (default) or the dataset's first clips; "
+                         "recorded in the store, classify reuses them")
     ex.set_defaults(fn=cmd_extract)
 
     ev = sub.add_parser("eval", help="episodic one-shot eval over a store")
@@ -414,9 +693,41 @@ def main(argv=None) -> int:
     ev.add_argument("--n-episodes", type=int, dest="n_episodes")
     ev.add_argument("--metric", choices=["cosine", "euclidean"])
     ev.add_argument("--fusion", choices=["max", "mean"])
+    ev.add_argument("--embodied", action="store_true",
+                    help="add --virtual-store's clips to each support set")
+    ev.add_argument("--virtual-store", dest="virtual_store", default=None)
     ev.add_argument("--per-episode-out", dest="per_episode_out",
                     default=None, metavar="FILE")
     ev.set_defaults(fn=cmd_eval)
+
+    cl = sub.add_parser("classify",
+                        help="classify new clips against a support store")
+    _add_common(cl)
+    _add_clips(cl)
+    cl.add_argument("--quant", default=None, choices=("off", "int8"),
+                    help="query precision; must match the support store's")
+    cl.add_argument("--embodied", action="store_true",
+                    help="add --virtual-store's clips to each class")
+    cl.add_argument("--virtual-store", dest="virtual_store", default=None)
+    cl.add_argument("--metric", choices=["cosine", "euclidean"])
+    cl.add_argument("--fusion", choices=["max", "mean"])
+    cl.add_argument("--out", default=None, metavar="FILE",
+                    help="per-clip JSON lines here instead of stdout")
+    cl.set_defaults(fn=cmd_classify)
+
+    es = sub.add_parser("episode", help="one N-way 1-shot episode from clips")
+    es.add_argument("--preset", default="ucf101_600",
+                    help="config preset (see eov_tpu_torch/config.py)")
+    es.add_argument("--seed", type=int, default=0)
+    es.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    es.add_argument("--n-way", type=int, dest="n_way")
+    _add_clips(es)
+    es.set_defaults(fn=cmd_episode)
+
+    si = sub.add_parser("store-info", help="a store's summary (JSON)")
+    si.add_argument("--store", required=True, help="feature store directory")
+    si.set_defaults(fn=cmd_store_info)
 
     tr = sub.add_parser("train", help="TSN finetune of the backbone")
     _add_train_common(tr)

@@ -2,8 +2,7 @@
 
 Counterpart of ``eov_tpu/config.py``: the same preset names and protocol
 settings, built from the port's ``EvalConfig`` and ``ExtractConfig``.
-Multi-chip mesh sizes (``n_data``/``n_frame``) are not ported; embodied
-eval is recorded as a flag the port does not run yet.
+Multi-chip mesh sizes (``n_data``/``n_frame``) are not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ class Preset:
     description: str
     eval: EvalConfig = EvalConfig()
     extract: ExtractConfig = ExtractConfig()
-    embodied: bool = False  # needs the virtual support bank (not ported)
 
 
 PRESETS: dict[str, Preset] = {
@@ -52,9 +50,9 @@ PRESETS: dict[str, Preset] = {
             description="Config 3: Kinetics-100 meta-test + UnrealAction "
                         "virtual supports",
             eval=EvalConfig(n_way=5, k_shot=1, n_query=1, n_episodes=600,
-                            episodes_per_step=64, fusion="max"),
+                            episodes_per_step=64, embodied=True,
+                            fusion="max"),
             extract=ExtractConfig(num_segments=8),
-            embodied=True,
         ),
         Preset(
             name="tpu_batched",

@@ -12,10 +12,15 @@ on-disk format, so a store written by either package loads in the other:
 Every flush writes a new shard and atomically replaces the writer's own
 manifest, so an interrupted extraction resumes from ``done_ids()``. Reads
 merge every writer's manifest. ``dtype`` (on-disk feature dtype) and
-``quant`` (extraction-precision provenance; the port only extracts the
-unquantized forward and declares ``None``) follow the reference's rules:
-a contradicting declaration raises. ``to_table(device)`` builds the padded
-class-major ``FeatureTable`` of torch tensors that eval.py consumes.
+``quant`` (extraction-precision provenance: ``None`` for the bf16/f32
+forward, ``"int8"`` for the int8 one) follow the reference's rules: a
+contradicting declaration raises. An int8 store also records its
+calibration (``quant_calib``: ``{conv site: act_max}``, the reference's
+site names) so that classify featurizes queries with the same int8
+program. ``to_table(device)`` builds the padded class-major
+``FeatureTable`` of torch tensors that eval.py consumes; ``summary()`` is
+``store-info``'s view. ``MemoryFeatureStore`` holds features consumed in
+the same process (classify's queries).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from eov_tpu_torch.eval import FeatureTable
 from eov_tpu_torch.utils.device import resolve_device
 
-__all__ = ["FeatureStore"]
+__all__ = ["FeatureStore", "MemoryFeatureStore"]
 
 _MANIFEST = "manifest.json"
 log = logging.getLogger("eov_tpu_torch.store")
@@ -191,6 +196,26 @@ class FeatureStore:
     def recorded_quant(self) -> tuple[str | None, bool]:
         return self._merged_quant()
 
+    def set_quant_calib(self, act_max: dict) -> None:
+        """Record the int8 calibration this store's features were extracted
+        with ({conv site: float}); written to the manifest at once."""
+        self._manifest["quant_calib"] = {str(k): float(v)
+                                         for k, v in act_max.items()}
+        self._write_manifest()
+
+    def quant_calib(self) -> dict | None:
+        """The recorded int8 calibration, or None. Writers must agree."""
+        calib = None
+        for m in self._all_manifests():
+            c = m.get("quant_calib")
+            if c is None:
+                continue
+            if calib is not None and c != calib:
+                raise ValueError(
+                    f"writers disagree on quant_calib in {self.root}")
+            calib = c
+        return calib
+
     def _merged_videos(self) -> dict[str, dict]:
         videos: dict[str, dict] = {}
         for m in self._all_manifests():
@@ -219,13 +244,77 @@ class FeatureStore:
                                 int(videos[vid]["label"]))
         return out
 
+    def summary(self) -> dict:
+        """Merged multi-writer summary (``store-info``), the reference's
+        keys: clips, classes, feature_dim, dtype, quant, quant_calib (are
+        scales recorded), shards, writers, bytes, per-class min/max and
+        empty classes."""
+        videos = self._merged_videos()
+        shards = sorted(glob.glob(os.path.join(self.root, "shard_*.npz")))
+        manifests = glob.glob(os.path.join(self.root, "manifest*.json"))
+        labels = [v["label"] for v in videos.values()]
+        n_classes = max(len(self.class_names),
+                        (max(labels) + 1) if labels else 0)
+        per_class = (np.bincount(labels, minlength=n_classes) if labels
+                     else np.zeros(n_classes, np.int64))
+        dim = None
+        if videos:
+            vid = next(iter(videos))
+            with np.load(os.path.join(self.root,
+                                      videos[vid]["shard"])) as z:
+                dim = int(z[vid].shape[-1])
+        q, known = self._merged_quant()
+        return {
+            "store": self.root,
+            "clips": len(videos),
+            "classes": n_classes,
+            "feature_dim": dim,
+            "dtype": self.dtype.name,
+            "quant": (q or "off") if known else "unknown",
+            "quant_calib": self.quant_calib() is not None,
+            "shards": len(shards),
+            "writers": len(manifests) or 1,
+            "bytes": int(sum(os.path.getsize(p) for p in shards)),
+            "clips_per_class_min":
+                int(per_class.min()) if len(per_class) else 0,
+            "clips_per_class_max":
+                int(per_class.max()) if len(per_class) else 0,
+            "empty_classes": int((per_class == 0).sum()),
+        }
+
     def to_table(self, device: torch.device | str = "cuda",
                  n_classes: int | None = None) -> FeatureTable:
-        """Padded class-major [C, M, D] features + [C] counts on device."""
+        """Padded class-major [C, M, D] features + [C] counts on device;
+        ``n_classes`` pads the class axis (classes with no clips: count 0)."""
         data = self.load_all()
         if not data:
             raise ValueError(f"empty feature store: {self.root}")
         return _table_from_dict(data, resolve_device(device), n_classes)
+
+
+class MemoryFeatureStore:
+    """In-process stand-in for ``FeatureStore`` (put/flush/done_ids and
+    load_all) for features consumed in the same run, as classify's queries
+    are: nothing is written, nothing resumes."""
+
+    def __init__(self, class_names: Sequence[str] | None = None):
+        self.class_names = list(class_names) if class_names else []
+        self._data: dict[str, tuple[np.ndarray, int]] = {}
+
+    def put(self, video_id: str, feature, label: int) -> None:
+        if isinstance(feature, torch.Tensor):
+            feature = feature.detach().cpu().numpy()
+        self._data[str(video_id)] = (np.asarray(feature, np.float32),
+                                     int(label))
+
+    def flush(self) -> None:
+        return None
+
+    def done_ids(self) -> set[str]:
+        return set(self._data)
+
+    def load_all(self) -> dict[str, tuple[np.ndarray, int]]:
+        return dict(self._data)
 
 
 def _table_from_dict(data: dict[str, tuple[np.ndarray, int]],

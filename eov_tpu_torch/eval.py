@@ -9,8 +9,13 @@ support and query features, scores them with
 fusion rules) and returns per-episode accuracy. The host accumulates the
 accuracy vector and the CI: mean ± 1.96·σ/√E (sample σ).
 
-Not ported yet: embodied (virtual-support) eval and the reference's
-``matcher`` switch — on the GPU the matcher is always the kernel.
+Embodied eval (``EvalConfig.embodied`` with a virtual bank from
+``embodied.align_virtual_bank``) appends each chosen class's virtual
+members to its support members, masked by the bank's counts; the episode
+sequence is the plain protocol's, so the two runs pair episode by episode.
+
+Not ported: the reference's ``matcher`` switch — on the GPU the matcher is
+always the kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ class EvalConfig:
     metric: str = "cosine"  # 'cosine' | 'euclidean'
     fusion: str = "max"     # 'max' (union support) | 'mean' (prototype)
     seed: int = 0
+    embodied: bool = False  # append the virtual support bank
 
 
 class FeatureTable(NamedTuple):
@@ -61,10 +67,14 @@ class EvalResult(NamedTuple):
 
 
 def eval_step(key: torch.Tensor, base_ordinal: int, features: torch.Tensor,
-              counts: torch.Tensor, *, n_way: int, k_shot: int, n_query: int,
-              n_step: int, metric: str, fusion: str) -> torch.Tensor:
+              counts: torch.Tensor, virtual_feats: torch.Tensor | None = None,
+              virtual_counts: torch.Tensor | None = None, *, n_way: int,
+              k_shot: int, n_query: int, n_step: int, metric: str,
+              fusion: str) -> torch.Tensor:
     """Accuracy [n_step] of the episodes with global ordinals
-    [base_ordinal, base_ordinal + n_step), on the features' device."""
+    [base_ordinal, base_ordinal + n_step), on the features' device. With a
+    virtual bank ([C, V, D] and [C] counts) each chosen class's virtual
+    members join its support members."""
     idx = ep.sample_episodes(
         key, counts, n_way=n_way, k_shot=k_shot, n_query=n_query,
         n_episodes=n_step, max_clips=features.shape[1],
@@ -75,6 +85,13 @@ def eval_step(key: torch.Tensor, base_ordinal: int, features: torch.Tensor,
     qry = features[cls, idx.query_idx]    # [E, N, Q, D]
     mask = torch.ones(sup.shape[:-1], dtype=torch.float32,
                       device=features.device)
+    if virtual_feats is not None:
+        virt = virtual_feats[idx.class_ids]  # [E, N, V, D]
+        vmask = (torch.arange(virtual_feats.shape[1],
+                              device=features.device)[None, None, :]
+                 < virtual_counts[idx.class_ids][..., None]).float()
+        sup = torch.cat([sup, virt], dim=2)
+        mask = torch.cat([mask, vmask], dim=2)
     qry_flat = qry.reshape(n_step, n_way * n_query, -1)
     scores = episode_class_scores(qry_flat, sup, mask, metric=metric,
                                   fusion=fusion)
@@ -85,9 +102,22 @@ def eval_step(key: torch.Tensor, base_ordinal: int, features: torch.Tensor,
     return hits * (1.0 / (n_way * n_query))
 
 
-def evaluate(table: FeatureTable, cfg: EvalConfig) -> EvalResult:
+def evaluate(table: FeatureTable, cfg: EvalConfig,
+             virtual: FeatureTable | None = None) -> EvalResult:
     """Run the protocol over the table (on its device): E episodes in steps
-    of ``episodes_per_step``, mean ± 95% CI."""
+    of ``episodes_per_step``, mean ± 95% CI. ``cfg.embodied`` needs the
+    ``virtual`` bank (aligned to the table's classes, same device)."""
+    if cfg.embodied and virtual is None:
+        raise ValueError("embodied eval requires a virtual FeatureTable")
+    if cfg.embodied:
+        d_real = table.features.shape[-1]
+        d_virt = virtual.features.shape[-1]
+        if d_real != d_virt:
+            raise ValueError(
+                f"real ({d_real}-d) and virtual ({d_virt}-d) features were "
+                "extracted with different backbones; re-extract one side")
+    vf = virtual.features if cfg.embodied else None
+    vc = virtual.counts if cfg.embodied else None
     need = cfg.k_shot + cfg.n_query
     n_eligible = int((table.counts >= need).sum())
     if n_eligible < cfg.n_way:
@@ -99,7 +129,7 @@ def evaluate(table: FeatureTable, cfg: EvalConfig) -> EvalResult:
     # episodes are computed and dropped, as in the reference.
     while done < cfg.n_episodes:
         acc = eval_step(
-            key, done, table.features, table.counts, n_way=cfg.n_way,
+            key, done, table.features, table.counts, vf, vc, n_way=cfg.n_way,
             k_shot=cfg.k_shot, n_query=cfg.n_query,
             n_step=cfg.episodes_per_step, metric=cfg.metric,
             fusion=cfg.fusion,

@@ -1,23 +1,38 @@
 """Clip feature extraction: decode -> preprocess -> backbone -> store.
 
 Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
-``resolve_fused_stages``, ``make_feature_fn``, ``extract_features``).
+``resolve_fused_stages``, ``quant_calibration``, ``make_feature_fn``,
+``extract_features``).
 
 * ``make_feature_fn`` builds the feature program, uint8 clips
   ``[B, K, H, W, 3]`` -> clip features ``[B, D]``: the fused crop+normalize
   (kernel 1) when frames are stored at the eval scale (``min(h, w) ==
   scale_size``, so the resize is the identity), the resize path otherwise;
-  then the folded ResNet with fused stages (kernel 2 inside); then TSN mean
+  then the folded ResNet with fused stages (kernel 2 inside), or with
+  ``quant="int8"`` the int8 forward (``models/quant_infer.py``: stage 1
+  through kernel 7, the other convs as int8 im2col matmuls); then TSN mean
   consensus over the K segments.
+* ``quant_calibration`` computes the int8 activation maxima once, on the
+  deterministic synthetic fixtures or on the dataset's first clips, as
+  plain floats under the reference's site names; the CLI records them in
+  the store (``FeatureStore.set_quant_calib``) and classify reads them
+  back, so queries go through the store's exact int8 program.
 * ``extract_features`` runs it over a dataset into a ``FeatureStore``. A
   decode thread prepares the next batch while the device computes the
   current one; decode faults are skipped and logged; clips already in the
   store are skipped (resume); the store flushes every ``flush_every``
   clips.
 
-Not ported yet, and refused by ``ExtractConfig`` rather than ignored:
-int8 quantization (``quant``), the Pallas stem pool (``pallas_pool``), the
-space-to-depth stem (``stem_s2d``). The multi-chip mesh path is not ported.
+Under ``quant="int8"`` the fused stages resolve as the bf16 ones do:
+``"auto"`` is ``(1,)`` on bottleneck archs, so stage 1 runs through kernel
+7. The reference resolves ``"auto"`` to the pure int8 walk there, from a
+TPU measurement that does not carry over; the kernel gives the walk's bits
+(both are exact in int32 with the same roundings), so stores from either
+program answer the same. ``fused_stages="none"`` gives the pure walk.
+
+Not ported yet, and refused by ``ExtractConfig`` rather than ignored: the
+Pallas stem pool (``pallas_pool``) and the space-to-depth stem
+(``stem_s2d``). The multi-chip mesh path is not ported.
 """
 
 from __future__ import annotations
@@ -37,14 +52,18 @@ from eov_tpu_torch.data.store import FeatureStore
 from eov_tpu_torch.models.folded_infer import (FoldedResNet,
                                                resolve_fused_stages,
                                                use_full_f32)
-from eov_tpu_torch.models.resnet import fold_batchnorm
+from eov_tpu_torch.models.quant_infer import (QuantResNet, calibrate_act_max,
+                                              quantize_variables,
+                                              resolve_quant_fused_stages,
+                                              synthetic_calib_frames)
+from eov_tpu_torch.models.resnet import check_state_dict, fold_batchnorm
 from eov_tpu_torch.ops import preprocess
 from eov_tpu_torch.ops.crop_normalize import crop_normalize
 from eov_tpu_torch.utils.device import resolve_device
 from eov_tpu_torch.utils.metrics import MetricsWriter, Timer
 
-__all__ = ["ExtractConfig", "resolve_fused_stages", "make_feature_fn",
-           "extract_features"]
+__all__ = ["ExtractConfig", "resolve_fused_stages", "quant_calibration",
+           "make_feature_fn", "extract_features"]
 
 log = logging.getLogger("eov_tpu_torch.extract")
 
@@ -64,37 +83,124 @@ class ExtractConfig:
     deterministic: bool = False    # decode inline, no overlap (tests)
     fault_inject: float = 0.0      # P(decode failure), failure-path tests
     fault_seed: int = 0
+    quant: str | None = None       # None (bf16/f32 forward) | "int8"
+    quant_calib_clips: int = 8     # calibration clips for the int8 scales
+    quant_calib: str = "synthetic"  # "synthetic" fixtures | "dataset"
+                                    # (the extraction dataset's first clips)
     # Reference options the port does not implement yet: set, they raise.
-    quant: str | None = None
     pallas_pool: bool | str = False
     stem_s2d: bool = False
 
     def __post_init__(self):
         refused = [f"{k}={v!r}" for k, v in (
-            ("quant", self.quant), ("pallas_pool", self.pallas_pool),
+            ("pallas_pool", self.pallas_pool),
             ("stem_s2d", self.stem_s2d)) if v not in (None, False)]
         if refused:
             raise ValueError(
                 f"{', '.join(refused)}: not implemented in eov_tpu_torch "
-                "(int8, the stem-pool kernels and the s2d stem are not "
-                "ported yet)")
+                "(the stem-pool kernels and the s2d stem are not ported "
+                "yet)")
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
+        if self.quant is not None and self.quant != "int8":
+            raise ValueError(f"quant={self.quant!r}: the only implemented "
+                             "scheme is 'int8'")
+        if self.quant_calib not in ("synthetic", "dataset"):
+            raise ValueError(f"quant_calib={self.quant_calib!r}: expected "
+                             "'synthetic' or 'dataset'")
+
+
+def _folded(weights, cfg: ExtractConfig) -> dict:
+    """The folded weights; under int8, raw weights with BN statistics are
+    required (the calibration and the quantization run on the fold)."""
+    if cfg.quant is not None:
+        try:
+            check_state_dict(weights, cfg.arch, strict=False)
+        except KeyError as e:
+            raise ValueError(
+                "quant='int8' quantizes the FOLDED inference path: it needs "
+                f"raw weights with BatchNorm statistics ({e})") from None
+    return fold_batchnorm(weights, cfg.arch)
+
+
+def _synthetic_act_max(folded, cfg: ExtractConfig,
+                       dev: torch.device) -> dict:
+    """int8 activation maxima from the deterministic synthetic fixtures
+    (the same clips in any environment)."""
+    calib = synthetic_calib_frames(cfg.quant_calib_clips, cfg.num_segments,
+                                   cfg.scale_size, cfg.scale_size)
+    x = preprocess.preprocess_eval(torch.from_numpy(calib).to(dev),
+                                   scale_size=cfg.scale_size,
+                                   crop_size=cfg.crop_size,
+                                   dtype=torch.float32)
+    return calibrate_act_max(folded, x, arch=cfg.arch)
+
+
+def quant_calibration(weights, cfg: ExtractConfig, dataset=None,
+                      device: torch.device | str = "cuda") -> dict:
+    """Per-conv-site int8 activation maxima as plain floats under the
+    reference's site names: what a store records (``set_quant_calib``) so
+    that query runs reproduce its exact int8 program.
+
+    ``cfg.quant_calib``: ``"synthetic"`` (deterministic fixtures) or
+    ``"dataset"`` (the first ``cfg.quant_calib_clips`` clips of
+    ``dataset``, center-sampled and preprocessed as extraction does)."""
+    dev = resolve_device(device)
+    resolve_quant_fused_stages(cfg.fused_stages, arch=cfg.arch)  # refusals
+    folded = _folded(weights, dataclasses.replace(cfg, quant="int8"))
+    if cfg.quant_calib == "dataset":
+        if dataset is None:
+            raise ValueError("quant_calib='dataset' needs the extraction "
+                             "dataset")
+        recs = list(dataset.records)[:cfg.quant_calib_clips]
+        if not recs:
+            raise ValueError("quant_calib='dataset': dataset has no records")
+        xs = [preprocess.preprocess_eval(
+            torch.from_numpy(dataset.get_frames(
+                r, center_indices_np(r.num_frames, cfg.num_segments))).to(
+                dev), scale_size=cfg.scale_size, crop_size=cfg.crop_size,
+            dtype=torch.float32) for r in recs]
+        act = calibrate_act_max(folded, torch.stack(xs), arch=cfg.arch)
+    else:
+        act = _synthetic_act_max(folded, cfg, dev)
+    return {k: float(v) for k, v in act.items()}
 
 
 def make_feature_fn(weights, cfg: ExtractConfig,
-                    device: torch.device | str = "cuda") -> Callable:
+                    device: torch.device | str = "cuda",
+                    act_max: dict | None = None) -> Callable:
     """uint8 clips [B, K, H, W, 3] (any device) -> features [B, D] float32
     on ``device``. ``weights`` is a torchvision-style state_dict
-    (models.resnet)."""
+    (models.resnet).
+
+    ``act_max`` (int8 only): the activation maxima to quantize with, e.g.
+    ``quant_calibration``'s output or a store's ``quant_calib()``; None
+    calibrates on the synthetic fixtures here."""
     dev = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
     if dtype == torch.float32 and dev.type == "cuda":
         use_full_f32()
-    net = FoldedResNet(
-        fold_batchnorm(weights, cfg.arch), arch=cfg.arch, dtype=dtype,
-        fused_stages=resolve_fused_stages(cfg.fused_stages, arch=cfg.arch),
-    ).to(dev).eval()
+    if cfg.quant is not None:
+        stages = resolve_quant_fused_stages(cfg.fused_stages, arch=cfg.arch)
+        folded = _folded(weights, cfg)
+        if act_max is None:
+            act_max = _synthetic_act_max(folded, cfg, dev)
+        try:
+            qvars = quantize_variables(folded, act_max, cfg.arch)
+        except KeyError as e:
+            raise ValueError(
+                f"calibration scales are missing conv site {e.args[0]!r} — "
+                f"were they computed for a different --arch than "
+                f"{cfg.arch!r}? Recompute with quant_calibration or drop "
+                "act_max to recalibrate") from None
+        net = QuantResNet(qvars, arch=cfg.arch, dtype=dtype,
+                          fused_stages=stages)
+    else:
+        net = FoldedResNet(
+            fold_batchnorm(weights, cfg.arch), arch=cfg.arch, dtype=dtype,
+            fused_stages=resolve_fused_stages(cfg.fused_stages,
+                                              arch=cfg.arch))
+    net = net.to(dev).eval()
 
     @torch.inference_mode()
     def feature_fn(frames_u8: torch.Tensor) -> torch.Tensor:
@@ -128,16 +234,18 @@ def extract_features(
     metrics: MetricsWriter | None = None,
     feature_fn: Callable | None = None,
     device: torch.device | str = "cuda",
+    act_max: dict | None = None,
 ) -> dict:
     """Extract every record not yet in the store. Returns stats
     {total, skipped_done, extracted, failed}.
 
     ``feature_fn`` overrides the ResNet program (tests swap in a cheap
-    one).
+    one); ``act_max`` goes to ``make_feature_fn`` (int8 scales).
     """
     dev = resolve_device(device)
     metrics = metrics or MetricsWriter(None)
-    feature_fn = feature_fn or make_feature_fn(weights, cfg, dev)
+    feature_fn = feature_fn or make_feature_fn(weights, cfg, dev,
+                                               act_max=act_max)
     done = store.done_ids()
     work = dataset.records
     todo = [r for r in work if r.video_id not in done]

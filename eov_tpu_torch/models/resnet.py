@@ -15,7 +15,8 @@ weights, BatchNorm ``weight/bias/running_mean/running_var``, an optional
 ``fold_batchnorm`` is the port's own inference BN fold (counterpart of
 ``eov_tpu/models/resnet.py:fold_batchnorm``): with s = gamma/sqrt(var+eps),
 BN(conv(x)) = conv'(x) + b' where W' = W*s and b' = beta - mean*s, computed
-in float32 exactly as the reference does.
+in float32 exactly as the reference does (bit for bit: the int8 path's
+weight scales depend on it).
 
 ``ResNet`` is the trainable network of the finetune path (counterpart of
 ``eov_tpu/models/resnet.py:ResNet`` with ``num_classes``), an ``nn.Module``
@@ -206,7 +207,11 @@ def random_state_dict(arch: str = "resnet50", seed: int = 0,
 
 
 def _fold(sd, conv: str, bn: str, eps: float) -> dict:
-    scale = sd[f"{bn}.weight"] / torch.sqrt(sd[f"{bn}.running_var"] + eps)
+    # The square root is taken in float64 and rounded once to float32: the
+    # correctly rounded f32 root, which XLA computes and the CPU's
+    # vectorized f32 sqrt does not always give.
+    root = torch.sqrt((sd[f"{bn}.running_var"] + eps).double()).float()
+    scale = sd[f"{bn}.weight"] / root
     return {
         "weight": sd[f"{conv}.weight"] * scale[:, None, None, None],
         "bias": sd[f"{bn}.bias"] - sd[f"{bn}.running_mean"] * scale,

@@ -22,10 +22,11 @@ from eov_tpu_torch.ops import _cuda
 
 __all__ = ["l2_normalize", "pairwise_scores", "fused_class_scores", "predict",
            "episode_class_scores", "episode_scores_plain",
-           "episode_scores_cuda"]
+           "episode_scores_cuda", "MAX_ROWS"]
 
 _NEG = -1e30
-_MAX_SMEM_ROWS = 6144  # 2 floats per row within the default 48 KB
+MAX_ROWS = 6144  # query + support rows of one episode: 2 floats each in
+                 # the kernel's default 48 KB of shared memory
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -141,8 +142,8 @@ def episode_scores_cuda(query, support, mask, *,
                              f"{query.device}")
     e, q, d = query.shape
     n, m = support.shape[1], support.shape[2]
-    if q + n * m > _MAX_SMEM_ROWS:
-        raise ValueError(f"{q + n * m} rows per episode > {_MAX_SMEM_ROWS}")
+    if q + n * m > MAX_ROWS:
+        raise ValueError(f"{q + n * m} rows per episode > {MAX_ROWS}")
     out = torch.empty(e, q, n, dtype=torch.float32, device=query.device)
     code = _lib()(_cuda.ptr(query), _cuda.ptr(support), _cuda.ptr(mask),
                   _cuda.ptr(out), e, q, n, m, d, int(metric == "cosine"),

@@ -10,10 +10,12 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from eov_tpu_torch.models import quant_infer as tq
 from eov_tpu_torch.models.folded_infer import (folded_feature_apply,
                                                use_full_f32)
 from eov_tpu_torch.models.resnet import fold_batchnorm, random_state_dict
 from eov_tpu_torch.ops import bottleneck, crop_normalize, similarity
+from eov_tpu_torch.ops import bottleneck_int8 as bi
 from eov_tpu_torch.ops import bottleneck_train as bt
 
 pytestmark = pytest.mark.cuda
@@ -224,3 +226,96 @@ def test_train_stack_autograd_on_gpu(dev):
     want = grads("cpu", plain)
     for g, p in zip(got, want):
         torch.testing.assert_close(g.cpu(), p, rtol=1e-4, atol=1e-4)
+
+
+def _int8_blocks(rng, cin, cmid, cout, n_blocks, dev, proj=True):
+    """Random int8 blocks in the kernel's layout (weights, a*w_scale,
+    1/a, f32 biases)."""
+    blocks = []
+    for bi_ in range(n_blocks):
+        ci = cin if bi_ == 0 else cout
+
+        def wq(*shape):
+            return torch.from_numpy(rng.integers(-127, 128, shape,
+                                                 dtype=np.int8)).to(dev)
+
+        def f32(lo, hi, *shape):
+            return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+                np.float32)).to(dev)
+
+        b = {}
+        for tag, (i, o) in (("1", (ci, cmid)), ("2", (cmid, cmid)),
+                            ("3", (cmid, cout)), ("d", (ci, cout))):
+            if tag == "d" and not (bi_ == 0 and (proj or ci != cout)):
+                continue
+            b[f"w{tag}"] = wq(9, i, o) if tag == "2" else wq(i, o)
+            b[f"s{tag}"] = f32(1e-3, 2e-2, o)
+            b[f"q{tag}"] = f32(0.5, 4.0, 1)
+            b[f"b{tag}"] = f32(-0.3, 0.3, o)
+        blocks.append(b)
+    return blocks
+
+
+# (h, w, cin, cmid, cout, projected first block): h != w, a width that is
+# not a divisor of the 128-pixel tile, Cmid 8 (one word short of a chunk),
+# and ResNet-50's stage-1 channels.
+INT8_SHAPES = [(6, 7, 16, 8, 32, True), (5, 9, 32, 16, 32, False),
+               (3, 130 // 2, 24, 16, 40, True), (9, 5, 64, 64, 256, True)]
+
+
+@pytest.mark.parametrize("h,w,cin,cmid,cout,proj", INT8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stack_bitwise(dev, h, w, cin, cmid, cout, proj, dtype):
+    """Kernel 7 gives its plain version's bits: both sum int8 products
+    exactly in int32 and round at the same places."""
+    rng = np.random.default_rng(h * w + cmid)
+    blocks = _int8_blocks(rng, cin, cmid, cout, 3, dev, proj)
+    x = torch.from_numpy((rng.standard_normal((3, h * w, cin)) * 0.7).astype(
+        np.float32)).to(dev, dtype)
+    before = bi.fused_bottleneck_stack_int8.launches
+    got = bi.fused_bottleneck_stack_int8(x, blocks, h=h, w=w)
+    assert bi.fused_bottleneck_stack_int8.launches == before + 3
+    want = bi.bottleneck_stack_int8_plain(x, blocks, h=h, w=w)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert float((want != 0).float().mean()) > 0.3  # not all clipped to 0
+
+
+def test_int8_stack_deterministic(dev):
+    rng = np.random.default_rng(13)
+    blocks = _int8_blocks(rng, 64, 64, 256, 3, dev)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (4, 14 * 14, 64)).astype(np.float32))).to(dev, torch.bfloat16)
+    a = bi.bottleneck_stack_int8_cuda(x, blocks, h=14, w=14)
+    b = bi.bottleneck_stack_int8_cuda(x, blocks, h=14, w=14)
+    assert torch.equal(a, b)
+
+
+def test_int_mm_padding(dev):
+    """int_mm on the card at shapes cuBLASLt refuses as they are (M <= 16,
+    K and N not multiples of 8) equals the exact int64 product."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    for m, k, n in ((5, 147, 13), (17, 16, 256), (40, 9, 64)):
+        a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        want = (a.cpu().long() @ b.cpu().long()).int()
+        assert torch.equal(bi.int_mm(a, b).cpu(), want)
+
+
+def test_quant_forward_gpu_matches_cpu(dev):
+    """The int8 forward (stage 1 through kernel 7, the rest int8 im2col
+    matmuls) in f32 on the GPU against the same program on the CPU, with
+    the same scales: only the global pool's summation order differs."""
+    folded = fold_batchnorm(random_state_dict("resnet50", seed=3, width=16),
+                            "resnet50")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 64, 64, 3)).astype(np.float32))
+    qv = tq.calibrate_and_quantize(folded, x, arch="resnet50")
+    before = bi.fused_bottleneck_stack_int8.launches
+    got = tq.quant_feature_apply(qv, x.to(dev), dtype=torch.float32,
+                                 fused_stages=(1,))
+    assert bi.fused_bottleneck_stack_int8.launches == before + 3
+    want = tq.quant_feature_apply(qv, x, dtype=torch.float32,
+                                  fused_stages=(1,))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

@@ -158,7 +158,9 @@ def test_feature_program_matches_reference(variables, h, w):
 
 
 def test_extract_config_refuses_unported_options():
-    for kw in ({"quant": "int8"}, {"pallas_pool": "fused"},
-               {"stem_s2d": True}):
+    """The stem-pool kernels and the s2d stem are not ported; int8 is the
+    only quantization scheme (the reference's own refusal)."""
+    for kw in ({"quant": "int4"}, {"pallas_pool": "fused"},
+               {"stem_s2d": True}, {"quant": "int8", "stem_s2d": True}):
         with pytest.raises(ValueError):
             ExtractConfig(**kw)
