@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi --query-gpu=name,power.limit``);
-2. build the five CUDA kernel sources from ``eov_tpu_torch/csrc/`` (one
+2. build the seven CUDA kernel sources from ``eov_tpu_torch/csrc/`` (one
    nvcc per source, in parallel) and time the build;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time kernel, plain version and, where PyTorch
@@ -43,6 +43,17 @@ Phases (any failure exits non-zero):
    loss, parameters and the stem BN statistics must agree;
 8. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+Phase 3 also holds kernel 6 (the stem max-pool) equal to its plain
+version and ``F.max_pool2d``, kernel 4 (the basic-block stack) at
+ResNet-34's four fused stack shapes, and kernel 5 (pool + stage-1 stack)
+equal to kernel 6 then kernel 2. Between phases 5 and 6 the basic-block
+and stem-pool path runs through the CLI on the main path's set:
+``extract --arch resnet34 --fused-stages 1,2,3,4 --pallas-pool on`` ->
+600 episodes, ``extract --pallas-pool fused`` (resnet50, equal to the main
+path's store), the resnet34 cuDNN extraction to compare with, the f32
+program against the CPU, and the s2d stem through ``make_feature_fn``;
+kernels 4-6 must each launch there. Each phase prints its time.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -404,6 +415,235 @@ def check_matcher(dev):
             repeats=25, inner=20, graph=True),
         "library_call": "torch.einsum over normalized rows (f32, no TF32)",
         "shape": f"f32 q [{e}, {q}, {d}], s [{e}, {n}, {m}, {d}]",
+    }
+
+
+def check_pool(dev):
+    """Kernel 6 at the stem's shape (256 images bf16, 16 in f32): equal to
+    its plain version and to F.max_pool2d (value equality)."""
+    import torch.nn.functional as F
+
+    from eov_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n = 256
+    x = torch.relu(torch.randn(n, 112, 112, 64, generator=gen, device=dev)
+                   ).to(torch.bfloat16)
+
+    def lib(t):
+        return F.max_pool2d(t.permute(0, 3, 1, 2), 3, 2, 1)
+
+    for t in (x, x[:16].float().contiguous()):
+        got = pool.maxpool_cuda(t)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, pool.maxpool_plain(t))
+                and torch.equal(got, lib(t).permute(0, 2, 3, 1))):
+            fail(f"maxpool kernel ({t.dtype}) is not equal to its plain "
+                 "version and F.max_pool2d")
+    b, by = bound(n * (112 * 112 + 56 * 56) * 64 * 2, 8 * n * 56 * 56 * 64,
+                  torch.bfloat16)
+    return {
+        "name": "maxpool_s2", "route": "cuda",
+        "source": "eov_tpu_torch/csrc/maxpool_s2.cu",
+        "replaces": "eov_tpu/ops/pallas_pool.py:91",
+        "max_abs_err": 0.0,
+        "tolerance": "torch.equal with the plain version and F.max_pool2d, "
+                     "bf16 and f32",
+        "ms": cuda_ms(lambda: pool.maxpool_cuda(x), inner=10, graph=True),
+        "plain_ms": cuda_ms(lambda: pool.maxpool_plain(x), inner=10,
+                            graph=True),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: lib(x), inner=10, graph=True),
+        "library_call": "F.max_pool2d(x, 3, 2, 1), channels_last",
+        "shape": f"bf16 [{n}, 112, 112, 64] -> [{n}, 56, 56, 64]",
+    }
+
+
+# ResNet-34's fused basic stacks at 224^2: stage 1 whole and the stride-1
+# tails of stages 2-4 (h = w, C, blocks).
+BASIC_STAGES = {"stage1": (56, 64, 3), "stage2_tail": (28, 128, 3),
+                "stage3_tail": (14, 256, 5), "stage4_tail": (7, 512, 2)}
+
+
+def _basic_blocks(dev, gen, c, n_blocks, dtype):
+    """Random folded basic blocks. The branch's last conv has half the
+    LeCun scale, as a trained network's folded BN keeps a block's branch
+    below its skip: at full scale the residual stream of ResNet-34's
+    5-block stage-3 tail grows past 8, where one bf16 rounding flip (an
+    ulp of 0.0625) that the stream carries into a smaller output exceeds
+    the elementwise bar whatever the kernel does (seen on the card; a CPU
+    emulation with another summation order reproduces it)."""
+    def w(scale=1.0):
+        return (scale * torch.randn(9, c, c, generator=gen, device=dev)
+                / (9 * c) ** 0.5).to(dtype)
+
+    def b():
+        return 0.1 * torch.randn(c, generator=gen, device=dev)
+
+    return [{"w1": w(), "b1": b(), "w2": w(0.5), "b2": b()}
+            for _ in range(n_blocks)]
+
+
+def cudnn_basic_stage(x, blocks, h, w):
+    """A basic stack as per-conv cuDNN calls, bias, residual and ReLU in f32
+    after each conv as the fused chain sums them (the library yardstick)."""
+    import torch.nn.functional as F
+
+    n, _, c = x.shape
+    dt = x.dtype
+    x = x.reshape(n, h, w, c).permute(0, 3, 1, 2)
+    for blk in blocks:
+        w1, w2 = (blk[k].reshape(3, 3, c, c).permute(3, 2, 0, 1)
+                  for k in ("w1", "w2"))
+        y = torch.relu(F.conv2d(x, w1, padding=1).float()
+                       + blk["b1"][:, None, None]).to(dt)
+        x = torch.relu(F.conv2d(y, w2, padding=1).float()
+                       + blk["b2"][:, None, None] + x.float()).to(dt)
+    return x
+
+
+def check_basic_stack(dev):
+    """Kernel 4 at each of ResNet-34's fused stack shapes: bf16 at 256
+    images (rtol/atol 2e-2, per-image cosine >= 0.999) and f32 at 16 (1e-4);
+    times per stage and summed."""
+    from eov_tpu_torch.ops import bottleneck as bn
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n = 256
+    row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+           "bytes": 0, "max_abs_err": 0.0, "stages": {}}
+    lib = bn._basic_lib()
+    for name, (hw, c, nb) in BASIC_STAGES.items():
+        x = torch.relu(torch.randn(n, hw * hw, c, generator=gen, device=dev))
+        st = {}
+        for dt, m, tol in ((torch.bfloat16, n, 2e-2),
+                           (torch.float32, 16, 1e-4)):
+            blocks = _basic_blocks(dev, gen, c, nb, dt)
+            xs = x[:m].to(dt).contiguous()
+            got = bn.basic_stack_cuda(xs, blocks, h=hw, w=hw)
+            want = bn.basic_stack_plain(xs, blocks, h=hw, w=hw)
+            torch.cuda.synchronize()
+            ok, err = rel_ok(got, want, tol, tol)
+            cos = float(torch.nn.functional.cosine_similarity(
+                got.float().reshape(m, -1), want.float().reshape(m, -1),
+                dim=1).min())
+            key = "bf16" if dt == torch.bfloat16 else "f32"
+            if not ok or (dt == torch.bfloat16 and cos < 0.999):
+                fail(f"basic stack {name} ({key}) disagrees: max err {err}, "
+                     f"min cosine {cos}")
+            st[f"max_abs_err_{key}"], st[f"min_cosine_{key}"] = err, cos
+            st[f"max_abs_out_{key}"] = float(want.float().abs().max())
+            st[f"tile_rows_{key}"] = bn.basic_tile_rows(
+                lambda t: lib.basic_block_smem_bytes(
+                    int(dt == torch.bfloat16), hw, c, t), hw, hw)
+        xb = x.to(torch.bfloat16)
+        blocks = _basic_blocks(dev, gen, c, nb, torch.bfloat16)
+        flops = n * nb * 2 * (2 * hw * hw * 9 * c * c)
+        io = n * hw * hw * c * 2 * 2 + sum(
+            v.numel() * v.element_size() for b in blocks for v in b.values())
+        st.update(
+            ms=cuda_ms(lambda: bn.basic_stack_cuda(xb, blocks, h=hw, w=hw),
+                       repeats=5, inner=1),
+            plain_ms=cuda_ms(lambda: bn.basic_stack_plain(xb, blocks, h=hw,
+                                                          w=hw),
+                             repeats=3, inner=1),
+            library_ms=cuda_ms(lambda: cudnn_basic_stage(xb, blocks, hw, hw),
+                               repeats=5, inner=1),
+            flops=flops, bytes=io)
+        st["bound_ms"], st["bound_by"] = bound(io, flops, torch.bfloat16)
+        row["stages"][name] = st
+        for k in ("ms", "plain_ms", "library_ms", "flops", "bytes"):
+            row[k] += st[k]
+        row["max_abs_err"] = max(row["max_abs_err"], st["max_abs_err_bf16"])
+    row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
+                                             torch.bfloat16)
+    row.update(
+        name="basic_stack", route="cuda",
+        source="eov_tpu_torch/csrc/basic_stack.cu",
+        replaces="eov_tpu/ops/pallas_bottleneck.py:439",
+        tolerance="bf16 rtol 2e-2 atol 2e-2, per-image cosine >= 0.999; "
+                  "f32 rtol 1e-4 atol 1e-4 (kernel 2's bars)",
+        library_call="per-conv cuDNN (F.conv2d, bf16), bias, residual and "
+                     "ReLU in f32 as the fused chain",
+        timing="ms, plain_ms, library_ms, bound_ms: sums over ResNet-34's "
+               "four fused stacks (stage 1 and the tails of 2-4), bf16, "
+               f"{n} images")
+    return row
+
+
+def check_pool_stack(dev):
+    """Kernel 5 at ResNet-50 stage 1 from the pre-pool stem map: equal to
+    kernel 6 then kernel 2 (torch.equal), and to its plain version within
+    kernel 2's bars; bf16 at 256 images, f32 at 16."""
+    import torch.nn.functional as F
+
+    from eov_tpu_torch.ops import bottleneck as bn
+    from eov_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 256
+    x = torch.relu(torch.randn(n, 112, 112, 64, generator=gen, device=dev))
+    blocks = _stage1_blocks(dev, torch.bfloat16, gen)
+
+    def k6_k2(t, bl):
+        return bn.bottleneck_stack_cuda(
+            pool.maxpool_cuda(t).reshape(t.shape[0], 3136, 64), bl, h=56,
+            w=56)
+
+    errs = {}
+    for dt, m, tol, min_cos in ((torch.bfloat16, n, 2e-2, 0.999),
+                                (torch.float32, 16, 1e-4, 0.0)):
+        bl = [{k: (v.to(dt) if k[0] == "w" else v) for k, v in b.items()}
+              for b in blocks]
+        xs = x[:m].to(dt).contiguous()
+        got = bn.pool_bottleneck_stack_cuda(xs, bl)
+        ref = k6_k2(xs, bl)
+        want = bn.pool_bottleneck_stack_plain(xs, bl)
+        torch.cuda.synchronize()
+        ok, err = rel_ok(got, want, tol, tol)
+        cos = float(torch.nn.functional.cosine_similarity(
+            got.float().reshape(m, -1), want.float().reshape(m, -1),
+            dim=1).min())
+        if not torch.equal(got, ref):
+            fail(f"pool stack ({dt}) is not equal to kernel 6 then kernel 2: "
+                 f"{float((got != ref).float().mean())} of elements differ")
+        if not ok or cos < min_cos:
+            fail(f"pool stack ({dt}) disagrees with its plain version: max "
+                 f"err {err}, min cosine {cos}")
+        errs[dt] = err
+    xb = x.to(torch.bfloat16)
+    flops = n * (bn.stack_flops_per_img(blocks, 3136) + 3136 * 64 * 8)
+    io = n * (112 * 112 * 64 + 3136 * 256) * 2 + sum(
+        v.numel() * v.element_size() for b in blocks for v in b.values())
+    b, by = bound(io, flops, torch.bfloat16)
+    return {
+        "name": "pool_bottleneck_stack", "route": "cuda",
+        "source": "eov_tpu_torch/csrc/bottleneck_stack.cu",
+        "replaces": "eov_tpu/ops/pallas_bottleneck.py:502",
+        "max_abs_err": errs[torch.bfloat16],
+        "max_abs_err_f32": errs[torch.float32],
+        "equal_to_kernel6_then_kernel2": True,
+        "tolerance": "torch.equal with kernel 6 then kernel 2 (bf16, f32); "
+                     "vs plain: bf16 rtol 2e-2 atol 2e-2, cosine >= 0.999, "
+                     "f32 rtol 1e-4 atol 1e-4",
+        "note": "launches counts the pool-entry block; each call also runs "
+                "the stage's two other blocks on kernel 2 (counted there)",
+        "ms": cuda_ms(lambda: bn.pool_bottleneck_stack_cuda(xb, blocks),
+                      repeats=7, inner=1),
+        "plain_ms": cuda_ms(
+            lambda: bn.pool_bottleneck_stack_plain(xb, blocks), repeats=5,
+            inner=1),
+        "kernel6_then_kernel2_ms": cuda_ms(lambda: k6_k2(xb, blocks),
+                                           repeats=7, inner=1),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(
+            lambda: cudnn_stage(
+                F.max_pool2d(xb.permute(0, 3, 1, 2), 3, 2, 1).permute(
+                    0, 2, 3, 1), blocks, 56, 56),
+            repeats=7, inner=1),
+        "library_call": "F.max_pool2d then per-conv cuDNN (cudnn_stage)",
+        "flops": flops, "bytes": io,
+        "shape": f"bf16 [{n}, 112, 112, 64] -> [{n}, 3136, 256], 3 blocks",
     }
 
 
@@ -905,6 +1145,150 @@ def int8_embodied_path(dev, gpu, batch):
     }
 
 
+# ------------------------------------------------- basic-block and pool
+
+def basic_pool_path(dev, gpu, batch):
+    """The basic-block and stem-pool extract path through the CLI on the
+    main path's synthetic set (the same flags and seed): resnet34 with every
+    stage fused and the pool kernel -> store -> 600 episodes; resnet50 with
+    the pool fused into stage 1; resnet34 on cuDNN as the comparison; the
+    s2d stem through make_feature_fn. ``batch`` is the main path's 32 clips
+    on the card, for the feature-program times."""
+    from eov_tpu_torch.data.datasets import SyntheticVideoDataset
+    from eov_tpu_torch.data.segments import center_indices_np
+    from eov_tpu_torch.data.store import FeatureStore
+    from eov_tpu_torch.eval import EvalConfig, evaluate
+    from eov_tpu_torch.extract import ExtractConfig, make_feature_fn
+    from eov_tpu_torch.models.resnet import random_state_dict
+    from eov_tpu_torch.ops import bottleneck, crop_normalize, pool, similarity
+
+    work = os.path.join(WORK, "basic_pool")
+    os.makedirs(work)
+    stores = {t: os.path.join(work, t) for t in ("r34", "r34_cudnn", "r50")}
+    per_ep = os.path.join(work, "r34_episodes.json")
+    # The CLI's weights for --seed 0 without --params are
+    # random_state_dict(arch, seed=0): the main path's for resnet50.
+    common = ["--preset", "tpu_batched", "--device", "cuda",
+              "--synthetic-classes", "12", "--synthetic-clips", "6",
+              "--synthetic-height", "256", "--synthetic-width", "320"]
+    r34 = ["--arch", "resnet34", "--fused-stages", "1,2,3,4",
+           "--pallas-pool", "on"]
+    kernels = {"crop_normalize": crop_normalize.crop_normalize,
+               "basic_stack": bottleneck.fused_basic_stack,
+               "maxpool_s2": pool.maxpool_3x3_s2_nonneg,
+               "pool_bottleneck_stack":
+                   bottleneck.fused_pool_bottleneck_stack,
+               "bottleneck_stack": bottleneck.fused_bottleneck_stack,
+               "episode_scores": similarity.episode_class_scores}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = json.loads(_quiet_cli(["extract", *common, *r34, "--store",
+                                   stores["r34"]])[-1])
+    extract_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _quiet_cli(["eval", "--device", "cuda", "--preset", "tpu_batched",
+                "--store", stores["r34"], "--per-episode-out", per_ep])
+    eval_s = time.perf_counter() - t0
+    stats50 = json.loads(_quiet_cli(["extract", *common, "--pallas-pool",
+                                     "fused", "--store", stores["r50"]])[-1])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    zero = [n for n, c in launches.items() if c == 0]
+    if zero:
+        fail(f"kernels never launched on the basic-block and pool path: "
+             f"{zero}")
+    stats_c = json.loads(_quiet_cli(["extract", *common, "--arch",
+                                     "resnet34", "--fused-stages", "none",
+                                     "--pallas-pool", "off", "--store",
+                                     stores["r34_cudnn"]])[-1])
+    if any(s["extracted"] != 72 or s["failed"]
+           for s in (stats, stats50, stats_c)):
+        fail(f"extraction incomplete: {stats}, {stats50}, {stats_c}")
+
+    cos = torch.nn.functional.cosine_similarity
+    feats = {t: FeatureStore(p).load_all() for t, p in stores.items()}
+    ids = sorted(feats["r34"])
+
+    def table(tag):
+        return torch.from_numpy(np.stack([feats[tag][v][0] for v in ids]))
+
+    cos_cudnn = float(cos(table("r34"), table("r34_cudnn"), dim=1).min())
+    main = FeatureStore(os.path.join(WORK, "store")).load_all()
+    r50_equal = all(np.array_equal(feats["r50"][v][0], main[v][0])
+                    for v in ids)
+    if cos_cudnn < 0.99 or not r50_equal:
+        fail(f"stores disagree: resnet34 fused+pool vs cuDNN min cosine "
+             f"{cos_cudnn} (>= 0.99); resnet50 pool-fused equal to the main "
+             f"path's store: {r50_equal}")
+
+    # One f32 batch of the fused+pool program, GPU against the CPU's plain
+    # path; the 600 episodes against the CPU matcher.
+    ds = SyntheticVideoDataset(n_classes=12, clips_per_class=6, height=256,
+                               width=320, seed=0)
+    clips = torch.from_numpy(np.stack(
+        [ds.get_frames(r, center_indices_np(r.num_frames, 8))
+         for r in ds.records[:2]]))
+    w34 = random_state_dict("resnet34", seed=0)
+    cfg32 = ExtractConfig(arch="resnet34", num_segments=8,
+                          compute_dtype="float32", fused_stages=(1, 2, 3, 4),
+                          pallas_pool=True)
+    gpu32 = make_feature_fn(w34, cfg32, dev)(clips).cpu()
+    cpu32 = make_feature_fn(w34, cfg32, "cpu")(clips)
+    cos32 = float(cos(gpu32, cpu32, dim=1).min())
+    with open(per_ep) as f:
+        per_gpu = np.asarray(json.load(f)["per_episode"], np.float32)
+    res_cpu = evaluate(FeatureStore(stores["r34"]).to_table("cpu"),
+                       EvalConfig(n_way=5, k_shot=1, n_query=1,
+                                  n_episodes=600, episodes_per_step=64))
+    agree = float(np.mean(res_cpu.per_episode == per_gpu))
+    if cos32 < 0.99999 or agree < 0.99 or len(per_gpu) != 600:
+        fail(f"resnet34 fused+pool vs the CPU: f32 cosine {cos32} "
+             f"(>= 0.99999), episodes equal {agree} of {len(per_gpu)}")
+
+    # The s2d stem against the 7x7 stem on the main path's batch, and the
+    # feature programs' times on it (CUDA events, median of 5).
+    w50 = random_state_dict("resnet50", seed=0)
+    base = dict(num_segments=8, batch_clips=32)
+    fns = {
+        "resnet34_fused_pool": make_feature_fn(
+            w34, ExtractConfig(arch="resnet34", fused_stages=(1, 2, 3, 4),
+                               pallas_pool=True, **base), dev),
+        "resnet34_cudnn": make_feature_fn(
+            w34, ExtractConfig(arch="resnet34", **base), dev),
+        "resnet50_pool_fused": make_feature_fn(
+            w50, ExtractConfig(pallas_pool="fused", **base), dev),
+        "resnet50_main_path": make_feature_fn(w50, ExtractConfig(**base),
+                                              dev),
+        "resnet50_stem_s2d": make_feature_fn(
+            w50, ExtractConfig(stem_s2d=True, **base), dev),
+    }
+    cos_s2d = float(cos(fns["resnet50_stem_s2d"](batch),
+                        fns["resnet50_main_path"](batch), dim=1).min())
+    if cos_s2d < 0.99:
+        fail(f"s2d stem vs the 7x7 stem: min per-clip cosine {cos_s2d}")
+    ms = {k: cuda_ms(lambda fn=fn: fn(batch), repeats=5, inner=1)
+          for k, fn in fns.items()}
+    return {
+        "gpu": gpu,
+        "config": "tpu_batched extract settings (K=8, 32 clips/batch, bf16), "
+                  "seed-0 weights; the main path's 12 classes x 6 clips at "
+                  "256x320; 600 episodes 5-way 1-shot",
+        "launches": launches,
+        "extract_s_resnet34_fused_pool": extract_s,
+        "extract_clips_per_s_resnet34_fused_pool": 72 / extract_s,
+        "eval_s": eval_s,
+        "accuracy_resnet34": float(per_gpu.mean()),
+        "cosine_resnet34_fused_pool_vs_cudnn_min": cos_cudnn,
+        "resnet50_pool_fused_equal_to_main_store": r50_equal,
+        "cosine_resnet34_gpu_vs_cpu_f32_min": cos32,
+        "episode_agreement_vs_cpu": agree,
+        "cosine_stem_s2d_vs_7x7_min": cos_s2d,
+        "feature_program_ms_per_32_clips": ms,
+    }
+
+
 # ------------------------------------------------------------ train path
 
 def _quiet_cli(argv) -> list[str]:
@@ -1098,40 +1482,61 @@ def main() -> int:
     torch.cuda.set_device(dev)
     use_full_f32()  # plain versions and f32 references: no TF32
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+
+    def phase(name):
+        nonlocal t0
+        now = time.perf_counter()
+        print(json.dumps({"phase": name, "s": now - t0,
+                          "total_s": now - t_start}), flush=True)
+        t0 = now
+
     per_source = _cuda.build_all()
     build_s = time.perf_counter() - t0
     print(json.dumps({"build_s": build_s, "nvcc_s": per_source}),
           flush=True)
+    phase("build")
 
     rows = []
     for check in (check_crop, check_stack, check_matcher, check_int8_stack,
-                  check_train_stack):
+                  check_train_stack, check_pool, check_basic_stack,
+                  check_pool_stack):
         found = check(dev)
         for row in found if isinstance(found, list) else [found]:
             row["gpu"] = gpu
             print(json.dumps({"kernel": row["name"], "kernel_ms": row["ms"],
                               **row}), flush=True)
             rows.append(row)
+        phase(check.__name__)
 
     summary, acc_line, batch = main_path(dev, gpu)
     print(json.dumps({"main_path": summary}), flush=True)
     print(acc_line, flush=True)
+    phase("main_path")
     int8 = int8_embodied_path(dev, gpu, batch)
-    del batch
     print(json.dumps({"int8_embodied_path": int8}), flush=True)
+    phase("int8_embodied_path")
+    basic = basic_pool_path(dev, gpu, batch)
+    del batch
+    print(json.dumps({"basic_pool_path": basic}), flush=True)
+    phase("basic_pool_path")
     train = train_path(dev, gpu)
     print(json.dumps({"train_path": train}), flush=True)
+    phase("train_path")
     print(json.dumps({"gpu_vs_cpu_f32_train_step": gpu_vs_cpu_step(dev)}),
           flush=True)
+    phase("gpu_vs_cpu_step")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    new = ("basic_stack", "maxpool_s2", "pool_bottleneck_stack")
     launches = {**summary["launches"], **train["launches"],
-                "bottleneck_int8": int8["launches"]["bottleneck_int8"]}
+                "bottleneck_int8": int8["launches"]["bottleneck_int8"],
+                **{k: basic["launches"][k] for k in new}}
     for row in rows:
         row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in rows]}), flush=True)
+    print(json.dumps({"kernels": [
+        {k: row[k] for k in keys + ("note",) if k in row} for row in rows]}),
+        flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@ Counterpart of ``eov_tpu/cli.py``'s commands of the same names:
     extract    — dataset -> clip features into a FeatureStore (resumable);
                  ``--quant int8`` extracts with the int8 forward and records
                  its calibration (``--quant-calib synthetic|dataset``) in
-                 the store
+                 the store; ``--pallas-pool on|fused`` runs the stem pool
+                 through kernel 6, or inside the stage-1 stack (kernel 5)
     eval       — seeded N-way K-shot episodes over a store, mean ± 95% CI;
                  ``--embodied --virtual-store S`` (or the
                  ``kinetics_embodied`` preset) adds S's virtual clips to
@@ -109,7 +110,14 @@ def _extract_config(args):
     quant = getattr(args, "quant", None)
     if quant is not None:
         overrides["quant"] = None if quant == "off" else quant
-    return dataclasses.replace(cfg, **overrides)
+    pool = getattr(args, "pallas_pool", None)
+    if pool is not None:
+        overrides["pallas_pool"] = {"off": False, "on": True,
+                                    "fused": "fused"}[pool]
+    try:  # the config's refusals, before any dataset or store is touched
+        return dataclasses.replace(cfg, **overrides)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
 
 def cmd_extract(args) -> int:
@@ -673,6 +681,11 @@ def main(argv=None) -> int:
     ex.add_argument("--fused-stages", type=_fused_stages, default=None,
                     metavar="SPEC",
                     help="'auto' (default), 'none', or a list like '1,2'")
+    ex.add_argument("--pallas-pool", dest="pallas_pool", default=None,
+                    choices=("off", "on", "fused"),
+                    help="stem max-pool: 'off' = cuDNN (default), 'on' = "
+                         "kernel 6, 'fused' = inside the stage-1 stack "
+                         "(kernel 5, bottleneck archs); needs fused stages")
     ex.add_argument("--store-dtype", default=None,
                     choices=("float32", "float16"))
     ex.add_argument("--quant", default=None, choices=("off", "int8"),

@@ -32,82 +32,36 @@
 // Rounding follows _run_chain: products of T values accumulate in f32, y1
 // and y2 round to T after bias+ReLU, and y3 + b3 + residual is summed in f32
 // before the final ReLU and the one rounding.
+//
+// Kernel 5, the pool-at-entry launcher (pool_bottleneck_block_launch), is
+// the same kernel with kPool set. It replaces
+// eov_tpu/ops/pallas_bottleneck.py fused_pool_bottleneck_stack
+// (_pool_stack_kernel): the stem's 3x3/s2 max-pool of the post-ReLU map
+// [N, 2H, 2W, 64] runs in the x loader, for the conv1 halo rows and for
+// the projection residual alike, each pooled pixel from its 3x3 window of
+// the pre-pool map, so the pooled [N, H, W, 64] map is never written or
+// read back. The wrapper launches the stage's first block (the projection
+// block) through it and the other blocks through kernel 2. Bound: the
+// stack's operations, as for kernel 2 (ResNet-50 stage 1 at 256 images bf16:
+// 342 GFLOP, 0.346 ms; its 822 MB of input and output take 0.245 ms). The
+// pool costs 9 loads per pooled value each time the loader reads it (once
+// for conv1, once per 64-channel tile of the projection): they hit L1/L2,
+// and the FFMA GEMMs dominate.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "tile_gemm.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTileP = 128;  // output pixels per GEMM tile (16 x 8 / thread)
-constexpr int kTileN = 64;   // output channels per GEMM tile (16 x 4 / thread)
-constexpr int kChunk = 16;   // K per staged chunk
-constexpr int kLdA = kChunk + 1;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// acc[i][j] += sum_k A(p, k) * B[k, n0 + c] for the thread's pixels
-// p = ty + 16 i (p < P <= 128) and channels c = 4 tx + j (n0 + c < n_cols).
-// A(p, k) is a_at(p, k); B is row-major with leading dimension ldb.
-template <typename T, typename AFn>
-__device__ __forceinline__ void block_gemm(float (&acc)[8][4], int P, int K,
-                                           AFn a_at, const T* __restrict__ B,
-                                           int ldb, int n_cols, int n0,
-                                           float* As, float* Bs) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    for (int e = tid; e < kTileP * kChunk; e += kThreads) {
-      const int p = e / kChunk, kk = e % kChunk, k = k0 + kk;
-      As[p * kLdA + kk] = (p < P && k < K) ? a_at(p, k) : 0.f;
-    }
-    for (int e = tid; e < kChunk * kTileN; e += kThreads) {
-      const int kk = e / kTileN, c = e % kTileN;
-      const int k = k0 + kk, n = n0 + c;
-      Bs[e] = (k < K && n < n_cols) ? to_f(B[(size_t)k * ldb + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk * kTileN + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = As[(ty + 16 * i) * kLdA + kk];
-        acc[i][0] += a * b.x;
-        acc[i][1] += a * b.y;
-        acc[i][2] += a * b.z;
-        acc[i][3] += a * b.w;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
 
 struct Dims {
   int n, h, w, cin, cmid, cout, tile_rows;
 };
 
-template <typename T>
+// kPool (kernel 5): x is the PRE-pool map [N, 2H, 2W, cin] and the block's
+// input is its 3x3/s2 max-pool, built pixel by pixel in the x loader
+// (pool3x3s2_at), so the pooled map never reaches device memory. Every
+// other line is kernel 2's: the GEMMs see the same operand values in the
+// same order, so the block's output equals maxpool -> kernel 2 bit for bit.
+template <typename T, bool kPool>
 __global__ void __launch_bounds__(kThreads)
 bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                         const float* __restrict__ b1, const T* __restrict__ w2,
@@ -132,7 +86,16 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const T* ximg = x + (size_t)img * H * W * cin;
+  const T* ximg = x + (size_t)img * (kPool ? 4 : 1) * H * W * cin;
+  // Channel k of the block input at pixel px = row * W + col of the image.
+  auto x_at = [&](int px, int k) -> float {
+    if constexpr (kPool) {
+      const int row = px / W;
+      return pool3x3s2_at(ximg, 2 * W, cin, row, px - row * W, k);
+    } else {
+      return to_f(ximg[(size_t)px * cin + k]);
+    }
+  };
 
   // Zero padding of the 3x3: edge columns and off-image rows stay zero.
   for (int e = tid; e < halo_rows * ldy1 * cmid; e += kThreads)
@@ -152,7 +115,7 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
           [&](int p, int k) {
             const int hp = pb + p, row = r0 - 1 + hp / W;
             if (row < 0 || row >= H) return 0.f;
-            return to_f(ximg[((size_t)row * W + hp % W) * cin + k]);
+            return x_at(row * W + hp % W, k);
           },
           w1, cmid, cmid, n0, As, Bs);
 #pragma unroll
@@ -202,7 +165,7 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   __syncthreads();
 
   // Phase C: out = relu((y2 w3 + b3) + residual), residual in f32.
-  const T* xtile = ximg + (size_t)r0 * W * cin;
+  const int px0 = r0 * W;  // first pixel of the tile
   T* otile = out + ((size_t)img * H * W + (size_t)r0 * W) * cout;
   for (int n0 = 0; n0 < cout; n0 += kTileN) {
     float res[8][4];
@@ -210,7 +173,7 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     if (wd != nullptr) {
       block_gemm<T>(
           res, P, cin,
-          [&](int p, int k) { return to_f(xtile[(size_t)p * cin + k]); },
+          [&](int p, int k) { return x_at(px0 + p, k); },
           wd, cout, cout, n0, As, Bs);
     }
     zero(acc);
@@ -226,8 +189,7 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       for (int j = 0; j < 4; ++j) {
         const int c = n0 + tx * 4 + j;
         if (c >= cout) continue;
-        const float r = wd != nullptr ? res[i][j] + bd[c]
-                                      : to_f(xtile[(size_t)p * cin + c]);
+        const float r = wd != nullptr ? res[i][j] + bd[c] : x_at(px0 + p, c);
         otile[(size_t)p * cout + c] =
             from_f<T>(fmaxf((acc[i][j] + b3[c]) + r, 0.f));
       }
@@ -237,25 +199,41 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
 template <typename T>
 size_t smem_bytes(const Dims& d) {
-  return sizeof(float) * (kTileP * kLdA + kChunk * kTileN) +
+  return kGemmSmem +
          sizeof(T) * ((size_t)(d.tile_rows + 2) * (d.w + 2) * d.cmid +
                       (size_t)d.tile_rows * d.w * d.cmid);
 }
 
-template <typename T>
+template <typename T, bool kPool>
 int launch(const void* x, const void* w1, const float* b1, const void* w2,
            const float* b2, const void* w3, const float* b3, const void* wd,
            const float* bd, void* out, Dims d, cudaStream_t s) {
   const size_t smem = smem_bytes<T>(d);
   cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bottleneck_block_kernel<T, kPool>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((d.h + d.tile_rows - 1) / d.tile_rows, d.n);
-  bottleneck_block_kernel<T><<<grid, kThreads, smem, s>>>(
+  bottleneck_block_kernel<T, kPool><<<grid, kThreads, smem, s>>>(
       (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (const T*)w3, b3,
       (const T*)wd, bd, (T*)out, d);
   return (int)cudaGetLastError();
+}
+
+template <bool kPool>
+int launch_dtype(const void* x, const void* w1, const void* b1,
+                 const void* w2, const void* b2, const void* w3,
+                 const void* b3, const void* wd, const void* bd, void* out,
+                 Dims d, int bf16, cudaStream_t s) {
+  if (d.n == 0 || d.h == 0 || d.w == 0) return (int)cudaGetLastError();
+  if (bf16)
+    return launch<__nv_bfloat16, kPool>(
+        x, w1, (const float*)b1, w2, (const float*)b2, w3, (const float*)b3,
+        wd, (const float*)bd, out, d, s);
+  return launch<float, kPool>(x, w1, (const float*)b1, w2, (const float*)b2,
+                              w3, (const float*)b3, wd, (const float*)bd, out,
+                              d, s);
 }
 
 }  // namespace
@@ -267,7 +245,8 @@ extern "C" long long bottleneck_block_smem_bytes(int bf16, int w, int cmid,
               : (long long)smem_bytes<float>(d);
 }
 
-// wd / bd may be null (identity residual, requires cin == cout).
+// Kernel 2: one block of the stack. wd / bd may be null (identity
+// residual, requires cin == cout).
 extern "C" int bottleneck_block_launch(const void* x, const void* w1,
                                        const void* b1, const void* w2,
                                        const void* b2, const void* w3,
@@ -275,13 +254,19 @@ extern "C" int bottleneck_block_launch(const void* x, const void* w1,
                                        const void* bd, void* out, int n, int h,
                                        int w, int cin, int cmid, int cout,
                                        int tile_rows, int bf16, void* stream) {
-  if (n == 0 || h == 0 || w == 0) return (int)cudaGetLastError();
-  Dims d{n, h, w, cin, cmid, cout, tile_rows};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch<__nv_bfloat16>(x, w1, (const float*)b1, w2,
-                                 (const float*)b2, w3, (const float*)b3, wd,
-                                 (const float*)bd, out, d, s);
-  return launch<float>(x, w1, (const float*)b1, w2, (const float*)b2, w3,
-                       (const float*)b3, wd, (const float*)bd, out, d, s);
+  return launch_dtype<false>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
+                             Dims{n, h, w, cin, cmid, cout, tile_rows}, bf16,
+                             (cudaStream_t)stream);
+}
+
+// Kernel 5: the stem max-pool and one block, from the pre-pool map x
+// [n, 2h, 2w, cin]; h, w and tile_rows are of the pooled map.
+extern "C" int pool_bottleneck_block_launch(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* w3, const void* b3, const void* wd,
+    const void* bd, void* out, int n, int h, int w, int cin, int cmid,
+    int cout, int tile_rows, int bf16, void* stream) {
+  return launch_dtype<true>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
+                            Dims{n, h, w, cin, cmid, cout, tile_rows}, bf16,
+                            (cudaStream_t)stream);
 }

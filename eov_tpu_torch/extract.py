@@ -8,10 +8,13 @@ Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
   ``[B, K, H, W, 3]`` -> clip features ``[B, D]``: the fused crop+normalize
   (kernel 1) when frames are stored at the eval scale (``min(h, w) ==
   scale_size``, so the resize is the identity), the resize path otherwise;
-  then the folded ResNet with fused stages (kernel 2 inside), or with
-  ``quant="int8"`` the int8 forward (``models/quant_infer.py``: stage 1
-  through kernel 7, the other convs as int8 im2col matmuls); then TSN mean
-  consensus over the K segments.
+  then the folded ResNet with fused stages (kernel 2 inside; kernel 4 on
+  resnet18/34), the stem pool through kernel 6 (``pallas_pool=True``) or
+  fused into the stage-1 stack (``"fused"``, kernel 5), optionally the
+  space-to-depth stem (``stem_s2d``); or with ``quant="int8"`` the int8
+  forward (``models/quant_infer.py``: stage 1 through kernel 7, the other
+  convs as int8 im2col matmuls); then TSN mean consensus over the K
+  segments.
 * ``quant_calibration`` computes the int8 activation maxima once, on the
   deterministic synthetic fixtures or on the dataset's first clips, as
   plain floats under the reference's site names; the CLI records them in
@@ -30,9 +33,14 @@ TPU measurement that does not carry over; the kernel gives the walk's bits
 (both are exact in int32 with the same roundings), so stores from either
 program answer the same. ``fused_stages="none"`` gives the pure walk.
 
-Not ported yet, and refused by ``ExtractConfig`` rather than ignored: the
-Pallas stem pool (``pallas_pool``) and the space-to-depth stem
-(``stem_s2d``). The multi-chip mesh path is not ported.
+``ExtractConfig`` refuses at construction what the reference's
+``make_feature_fn`` refuses at config time (``pallas_pool="fused"``
+without stage 1 fused or on a basic arch; int8 with ``stem_s2d``). Where the reference only logs that it ignores
+``pallas_pool`` (no fused stage resolved, or int8), the port raises
+``ValueError`` instead: a flag that selects a kernel must not quietly run
+another path. So on resnet18/34, whose ``"auto"`` fused stages are (),
+``pallas_pool=True`` needs explicit ``fused_stages``. The multi-chip mesh
+path is not ported.
 """
 
 from __future__ import annotations
@@ -49,14 +57,16 @@ import torch
 from eov_tpu_torch.data.datasets import VideoDataset
 from eov_tpu_torch.data.segments import center_indices_np
 from eov_tpu_torch.data.store import FeatureStore
-from eov_tpu_torch.models.folded_infer import (FoldedResNet,
+from eov_tpu_torch.models import get_arch
+from eov_tpu_torch.models.folded_infer import (PALLAS_POOL, FoldedResNet,
                                                resolve_fused_stages,
                                                use_full_f32)
 from eov_tpu_torch.models.quant_infer import (QuantResNet, calibrate_act_max,
                                               quantize_variables,
                                               resolve_quant_fused_stages,
                                               synthetic_calib_frames)
-from eov_tpu_torch.models.resnet import check_state_dict, fold_batchnorm
+from eov_tpu_torch.models.resnet import (check_state_dict, fold_batchnorm,
+                                         space_to_depth_stem)
 from eov_tpu_torch.ops import preprocess
 from eov_tpu_torch.ops.crop_normalize import crop_normalize
 from eov_tpu_torch.utils.device import resolve_device
@@ -87,19 +97,14 @@ class ExtractConfig:
     quant_calib_clips: int = 8     # calibration clips for the int8 scales
     quant_calib: str = "synthetic"  # "synthetic" fixtures | "dataset"
                                     # (the extraction dataset's first clips)
-    # Reference options the port does not implement yet: set, they raise.
-    pallas_pool: bool | str = False
-    stem_s2d: bool = False
+    pallas_pool: bool | str = False  # stem pool: False = cuDNN's max-pool,
+                                     # True = kernel 6, "fused" = inside the
+                                     # stage-1 stack (kernel 5); needs fused
+                                     # stages, bf16/f32 forward only
+    stem_s2d: bool = False         # space-to-depth stem (4x4 conv on
+                                   # [H/2, W/2, 12]); bf16/f32 forward only
 
     def __post_init__(self):
-        refused = [f"{k}={v!r}" for k, v in (
-            ("pallas_pool", self.pallas_pool),
-            ("stem_s2d", self.stem_s2d)) if v not in (None, False)]
-        if refused:
-            raise ValueError(
-                f"{', '.join(refused)}: not implemented in eov_tpu_torch "
-                "(the stem-pool kernels and the s2d stem are not ported "
-                "yet)")
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {list(_DTYPES)}")
         if self.quant is not None and self.quant != "int8":
@@ -108,6 +113,44 @@ class ExtractConfig:
         if self.quant_calib not in ("synthetic", "dataset"):
             raise ValueError(f"quant_calib={self.quant_calib!r}: expected "
                              "'synthetic' or 'dataset'")
+        self._check_stem_options()
+
+    def _check_stem_options(self) -> None:
+        """The refusals of ``pallas_pool`` and ``stem_s2d``: the
+        reference's, and two stricter ones where it only logs and ignores
+        the flag (each names the flag to add or drop)."""
+        pool = self.pallas_pool
+        if pool not in PALLAS_POOL:
+            raise ValueError(f"pallas_pool={pool!r}: expected one of "
+                             f"{PALLAS_POOL}")
+        if self.quant is not None:
+            if self.stem_s2d:
+                raise ValueError(
+                    "quant='int8' composes with the standard stem only; the "
+                    "s2d kernel rewrite reshapes conv1's input layout (set "
+                    "stem_s2d=False)")
+            if pool:
+                raise ValueError(
+                    f"quant='int8' with pallas_pool={pool!r}: the int8 "
+                    "forward has no stem-pool kernel; drop --pallas-pool")
+            return
+        stages = resolve_fused_stages(self.fused_stages, arch=self.arch)
+        if pool and not stages:
+            raise ValueError(
+                f"pallas_pool={pool!r} needs a fused stage: fused_stages="
+                f"{self.fused_stages!r} resolves to () on {self.arch}; add "
+                "--fused-stages (e.g. 1,2,3,4) or drop --pallas-pool")
+        if pool == "fused" and 1 not in stages:
+            raise ValueError(
+                "pallas_pool='fused' requires stage 1 in the resolved fused "
+                f"stages (fused_stages={self.fused_stages!r} resolved to "
+                f"{stages!r} on {self.arch}); use pallas_pool=True for the "
+                "standalone kernel")
+        if pool == "fused" and not get_arch(self.arch)[1]:
+            raise ValueError(
+                "pallas_pool='fused' is implemented for bottleneck archs "
+                f"only (arch={self.arch!r}); use pallas_pool=True for the "
+                "standalone kernel")
 
 
 def _folded(weights, cfg: ExtractConfig) -> dict:
@@ -196,10 +239,12 @@ def make_feature_fn(weights, cfg: ExtractConfig,
         net = QuantResNet(qvars, arch=cfg.arch, dtype=dtype,
                           fused_stages=stages)
     else:
-        net = FoldedResNet(
-            fold_batchnorm(weights, cfg.arch), arch=cfg.arch, dtype=dtype,
-            fused_stages=resolve_fused_stages(cfg.fused_stages,
-                                              arch=cfg.arch))
+        if cfg.stem_s2d:
+            weights = space_to_depth_stem(weights)
+        net = FoldedResNet(fold_batchnorm(weights, cfg.arch), arch=cfg.arch,
+                           dtype=dtype, fused_stages=cfg.fused_stages,
+                           pallas_pool=cfg.pallas_pool,
+                           stem_s2d=cfg.stem_s2d)
     net = net.to(dev).eval()
 
     @torch.inference_mode()

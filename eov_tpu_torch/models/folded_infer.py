@@ -1,4 +1,4 @@
-"""Folded-BN ResNet inference forward with fused bottleneck stages.
+"""Folded-BN ResNet inference forward with fused stages.
 
 Counterpart of ``eov_tpu/models/folded_infer.py:folded_feature_apply``.
 Frames ``[..., H, W, 3]`` go to features ``[..., D]`` (float32):
@@ -7,13 +7,24 @@ Frames ``[..., H, W, 3]`` go to features ``[..., D]`` (float32):
   unfused block run as ``F.conv2d`` (cuDNN on the GPU), channels_last,
   just as the reference leaves them to XLA;
 * the stages named in ``fused_stages`` run their stride-1 blocks through
-  ``ops.bottleneck.fused_bottleneck_stack`` (kernel 2 on the GPU). Stage 1
-  is stride-1 from its entry, so all of it fuses; stages 2-4 run their
-  strided entry block on cuDNN and fuse the tail.
+  the stack kernels of ``ops.bottleneck``: ``fused_bottleneck_stack``
+  (kernel 2) on bottleneck archs, ``fused_basic_stack`` (kernel 4) on
+  basic archs (resnet18/34). Stage 1 is stride-1 from its entry, so all of
+  it fuses; stages 2-4 run their strided entry block on cuDNN and fuse the
+  tail;
+* ``pallas_pool=True`` runs the stem pool through
+  ``ops.pool.maxpool_3x3_s2_nonneg`` (kernel 6, zero pad: exact on the
+  post-ReLU map); ``pallas_pool="fused"`` hands the pre-pool map to the
+  stage-1 stack, which pools at its entry
+  (``fused_pool_bottleneck_stack``, kernel 5; bottleneck archs with stage 1
+  fused only);
+* ``stem_s2d=True`` runs the stem as a 4x4 stride-1 conv with padding
+  (2, 1) over the space-to-depth frames ``[..., H/2, W/2, 12]``; the
+  weights must come through ``models.resnet.space_to_depth_stem``.
 
 Rounding follows the reference: each conv's output rounds to the compute
 dtype, then bias (in the compute dtype) and ReLU; residual adds in the
-compute dtype on unfused blocks; the fused stack follows its own chain
+compute dtype on unfused blocks; the fused stacks follow their own chains
 (ops/bottleneck.py). The global pool averages in f32 and rounds to the
 compute dtype before the final widening, as ``jnp.mean`` does.
 
@@ -32,11 +43,17 @@ from torch import nn
 
 from eov_tpu_torch.models import get_arch
 from eov_tpu_torch.models.resnet import block_names
-from eov_tpu_torch.ops.bottleneck import (fused_bottleneck_stack,
+from eov_tpu_torch.ops.bottleneck import (fused_basic_stack,
+                                          fused_bottleneck_stack,
+                                          fused_pool_bottleneck_stack,
+                                          pack_basic_params,
                                           pack_bottleneck_params)
+from eov_tpu_torch.ops.pool import maxpool_3x3_s2_nonneg
 
 __all__ = ["FoldedResNet", "folded_feature_apply", "resolve_fused_stages",
            "use_full_f32"]
+
+PALLAS_POOL = (False, True, "fused")
 
 
 def use_full_f32() -> None:
@@ -48,17 +65,14 @@ def use_full_f32() -> None:
 
 def resolve_fused_stages(fused_stages, *, arch: str) -> tuple:
     """"auto" -> (1,) for bottleneck archs on every device (the op picks
-    kernel or plain version by the tensor's device), () for basic archs,
-    whose stack kernel is not ported yet. Explicit tuples are honored."""
-    _, bottleneck = get_arch(arch)
+    kernel or plain version by the tensor's device), () for basic archs, as
+    the reference resolves it. Explicit tuples are honored on both
+    families."""
+    stage_sizes, bottleneck = get_arch(arch)
     if fused_stages == "auto":
         return (1,) if bottleneck else ()
     stages = tuple(int(s) for s in (fused_stages or ()))
-    if stages and not bottleneck:
-        raise NotImplementedError(
-            f"fused stages {stages} on {arch}: the basic-block stack kernel "
-            "is not ported yet (fused_stages=() runs it on cuDNN)")
-    bad = [s for s in stages if not 1 <= s <= len(get_arch(arch)[0])]
+    bad = [s for s in stages if not 1 <= s <= len(stage_sizes)]
     if bad:
         raise ValueError(f"fused_stages {bad} out of range for {arch}")
     return stages
@@ -67,17 +81,44 @@ def resolve_fused_stages(fused_stages, *, arch: str) -> tuple:
 class FoldedResNet(nn.Module):
     """The folded inference network; weights cast to ``dtype`` once.
 
-    ``folded`` is ``models.resnet.fold_batchnorm`` output. Conv weights are
-    kept channels_last, fused-stage blocks pre-packed for the stack kernel.
+    ``folded`` is ``models.resnet.fold_batchnorm`` output (of
+    ``space_to_depth_stem`` weights with ``stem_s2d``). Conv weights are
+    kept channels_last, fused-stage blocks pre-packed for the stack kernels.
     """
 
     def __init__(self, folded: Mapping, *, arch: str = "resnet50",
-                 dtype=torch.bfloat16, fused_stages=(1,)):
+                 dtype=torch.bfloat16, fused_stages=(1,),
+                 pallas_pool=False, stem_s2d: bool = False):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         self.stage_sizes, self.bottleneck = get_arch(arch)
         self.fused_stages = resolve_fused_stages(fused_stages, arch=arch)
+        if pallas_pool not in PALLAS_POOL:
+            raise ValueError(f"pallas_pool={pallas_pool!r}: expected one of "
+                             f"{PALLAS_POOL}")
+        if pallas_pool == "fused" and not self.bottleneck:
+            raise ValueError("pallas_pool='fused' is implemented for "
+                             "bottleneck archs only")
+        if pallas_pool == "fused" and 1 not in self.fused_stages:
+            raise ValueError(
+                "pallas_pool='fused' requires stage 1 in fused_stages (got "
+                f"{fused_stages!r}); use pallas_pool=True for the "
+                "standalone kernel")
+        self.pallas_pool = pallas_pool if pallas_pool == "fused" else \
+            bool(pallas_pool)
+        self.stem_s2d = bool(stem_s2d)
+        stem = tuple(folded["conv1"]["weight"].shape[1:])
+        want = (12, 4, 4) if self.stem_s2d else (3, 7, 7)
+        if stem != want:
+            raise ValueError(
+                f"stem_s2d={self.stem_s2d} needs a stem kernel of shape "
+                f"[O, {', '.join(map(str, want))}], got [O, "
+                f"{', '.join(map(str, stem))}]" + (
+                    " (pass the weights through space_to_depth_stem)"
+                    if self.stem_s2d else ""))
+        pack = pack_bottleneck_params if self.bottleneck else \
+            pack_basic_params
         self._convs: dict[str, tuple[str, str]] = {}
         self._packs: dict[int, list[dict[str, str]]] = {}
         self._add_conv("stem", folded["conv1"])
@@ -85,7 +126,7 @@ class FoldedResNet(nn.Module):
             blk = folded[t]
             if (i + 1) in self.fused_stages and (i == 0 or j > 0):
                 names = {}
-                for k, v in pack_bottleneck_params(blk, dtype).items():
+                for k, v in pack(blk, dtype).items():
                     names[k] = f"pack_{t.replace('.', '_')}_{k}"
                     self.register_buffer(names[k], v)
                 self._packs.setdefault(i, []).append(names)
@@ -119,22 +160,45 @@ class FoldedResNet(nn.Module):
         return torch.relu(y + r)
 
     def _stack(self, i: int, x):
-        n, c, h, w = x.shape
         blocks = [{k: getattr(self, v) for k, v in names.items()}
                   for names in self._packs[i]]
-        flat = x.permute(0, 2, 3, 1).reshape(n, h * w, c)
-        y = fused_bottleneck_stack(flat.contiguous(), blocks, h=h, w=w)
+        nhwc = x.permute(0, 2, 3, 1).contiguous()
+        n, h, w, c = nhwc.shape
+        if i == 0 and self.pallas_pool == "fused":
+            h, w = h // 2, w // 2  # the stack pools at its entry
+            y = fused_pool_bottleneck_stack(nhwc, blocks)
+        elif self.bottleneck:
+            y = fused_bottleneck_stack(nhwc.reshape(n, h * w, c), blocks,
+                                       h=h, w=w)
+        else:
+            y = fused_basic_stack(nhwc.reshape(n, h * w, c), blocks, h=h,
+                                  w=w)
         return y.reshape(n, h, w, -1).permute(0, 3, 1, 2)
+
+    def _stem(self, x):
+        """NHWC frames [B, H, W, 3] -> the post-ReLU stem map (NCHW view of
+        channels_last memory)."""
+        if not self.stem_s2d:
+            return torch.relu(self._conv("stem", x.permute(0, 3, 1, 2), 2, 3))
+        b, h, w, c = x.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"stem_s2d needs even frame sizes, got {h}x{w}")
+        x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
+        # Asymmetric padding (2, 1): F.conv2d pads symmetrically only.
+        return torch.relu(self._conv("stem", F.pad(x, (2, 1, 2, 1))))
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.float32 and frames.is_cuda:
             use_full_f32()
         lead = frames.shape[:-3]
         # NHWC memory viewed as NCHW: a channels_last tensor, no copy.
-        x = frames.reshape(-1, *frames.shape[-3:]).to(self.dtype)
-        x = x.permute(0, 3, 1, 2)
-        x = torch.relu(self._conv("stem", x, 2, 3))
-        x = F.max_pool2d(x, 3, 2, 1)  # implicit -inf padding
+        x = self._stem(frames.reshape(-1, *frames.shape[-3:]).to(self.dtype))
+        if self.pallas_pool is True:
+            x = maxpool_3x3_s2_nonneg(x.permute(0, 2, 3, 1).contiguous())
+            x = x.permute(0, 3, 1, 2)
+        elif not self.pallas_pool:
+            x = F.max_pool2d(x, 3, 2, 1)  # implicit -inf padding
         for i, n_blocks in enumerate(self.stage_sizes):
             if i in self._packs:
                 if i > 0:
@@ -150,9 +214,11 @@ class FoldedResNet(nn.Module):
 
 def folded_feature_apply(folded: Mapping, frames: torch.Tensor, *,
                          arch: str = "resnet50", dtype=torch.bfloat16,
-                         fused_stages=(1,)) -> torch.Tensor:
+                         fused_stages=(1,), pallas_pool=False,
+                         stem_s2d: bool = False) -> torch.Tensor:
     """Functional form: frames [..., H, W, 3] -> features [..., D] on the
     frames' device."""
     net = FoldedResNet(folded, arch=arch, dtype=dtype,
-                       fused_stages=fused_stages).to(frames.device)
+                       fused_stages=fused_stages, pallas_pool=pallas_pool,
+                       stem_s2d=stem_s2d).to(frames.device)
     return net(frames)

@@ -12,6 +12,10 @@ weights, BatchNorm ``weight/bias/running_mean/running_var``, an optional
   ``eov_tpu/tools/port_torch.py:port_resnet_state_dict``).
 * ``random_state_dict`` — seeded random weights from a ``torch.Generator``.
 
+``space_to_depth_stem`` rewrites the 7x7/s2 stem kernel for the
+space-to-depth stem (counterpart of
+``eov_tpu/models/resnet.py:space_to_depth_stem``).
+
 ``fold_batchnorm`` is the port's own inference BN fold (counterpart of
 ``eov_tpu/models/resnet.py:fold_batchnorm``): with s = gamma/sqrt(var+eps),
 BN(conv(x)) = conv'(x) + b' where W' = W*s and b' = beta - mean*s, computed
@@ -56,7 +60,8 @@ from torch.utils.checkpoint import checkpoint
 from eov_tpu_torch.models import get_arch
 
 __all__ = ["from_jax_variables", "load_state_dict", "check_state_dict",
-           "random_state_dict", "fold_batchnorm", "block_names",
+           "random_state_dict", "space_to_depth_stem", "fold_batchnorm",
+           "block_names",
            "Conv", "BatchNorm", "Bottleneck", "BasicBlock", "ResNet"]
 
 _BN_STATS = ("weight", "bias", "running_mean", "running_var")
@@ -204,6 +209,30 @@ def random_state_dict(arch: str = "resnet50", seed: int = 0,
                                       generator=g) / math.sqrt(cin)
         sd["fc.bias"] = torch.zeros(num_classes)
     return sd
+
+
+def space_to_depth_stem(sd: Mapping) -> dict:
+    """Rewrite ``conv1.weight`` [O, 3, 7, 7] -> [O, 12, 4, 4] for the
+    space-to-depth stem (``FoldedResNet(stem_s2d=True)``); other entries
+    pass through, as does an already rewritten stem.
+
+    Exact: pad the 7x7 to 8x8 with a zero top row and left column, then
+    fold each (dy, dx) phase of the 2x2 stride with the 3 colours into
+    12 input channels in the s2d input's (dy, dx, c) order:
+    W'[o, dy*6 + dx*3 + c, a, b] = W8[o, c, 2a + dy, 2b + dx]. A 4x4
+    stride-1 conv with padding (2, 1) over the s2d frames then equals the
+    7x7 stride-2 pad-3 conv up to summation order. It commutes with
+    ``fold_batchnorm`` (both only scale or move kernel entries).
+    """
+    out = dict(sd)
+    k = out["conv1.weight"]
+    if tuple(k.shape[1:]) == (3, 7, 7):
+        k = F.pad(k, (1, 0, 1, 0))  # [O, 3, 8, 8]
+        o = k.shape[0]
+        # [o, c, a, dy, b, dx] -> [o, dy, dx, c, a, b]
+        k = k.reshape(o, 3, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        out["conv1.weight"] = k.reshape(o, 12, 4, 4).contiguous()
+    return out
 
 
 def _fold(sd, conv: str, bn: str, eps: float) -> dict:

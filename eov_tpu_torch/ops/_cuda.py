@@ -5,8 +5,9 @@ that enqueues the kernel on the stream it is given and returns
 ``cudaGetLastError()``. It is compiled with nvcc for Hopper
 (``sm_90a``) into ``build/torch_kernels/`` at the repository root, on first
 use, and loaded with ``ctypes``. The library name carries a hash of the
-source, so an edited kernel is never served from a stale build. No PyTorch
-headers are involved, so a build takes seconds.
+source and of the shared headers (``csrc/*.cuh``), so an edited kernel is
+never served from a stale build. No PyTorch headers are involved, so a
+build takes seconds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without nvcc or a GPU.
@@ -32,7 +33,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("crop_normalize", "bottleneck_stack", "episode_scores",
-           "bottleneck_train", "bottleneck_int8")
+           "bottleneck_train", "bottleneck_int8", "maxpool_s2", "basic_stack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +53,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 

@@ -14,7 +14,7 @@ from eov_tpu_torch.models import quant_infer as tq
 from eov_tpu_torch.models.folded_infer import (folded_feature_apply,
                                                use_full_f32)
 from eov_tpu_torch.models.resnet import fold_batchnorm, random_state_dict
-from eov_tpu_torch.ops import bottleneck, crop_normalize, similarity
+from eov_tpu_torch.ops import bottleneck, crop_normalize, pool, similarity
 from eov_tpu_torch.ops import bottleneck_int8 as bi
 from eov_tpu_torch.ops import bottleneck_train as bt
 
@@ -319,3 +319,102 @@ def test_quant_forward_gpu_matches_cpu(dev):
     want = tq.quant_feature_apply(qv, x, dtype=torch.float32,
                                   fused_stages=(1,))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------- kernels 4, 5 and 6
+
+@pytest.mark.parametrize("shape", [(2, 10, 14, 24), (3, 12, 20, 64),
+                                   (2, 8, 6, 5), (1, 112, 112, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool_kernel_equal(dev, shape, dtype):
+    """Kernel 6 equals its plain version and F.max_pool2d (value equality:
+    max is no arithmetic; C = 5 takes the scalar path)."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.relu(torch.randn(*shape, generator=g, device=dev)).to(dtype)
+    before = pool.maxpool_3x3_s2_nonneg.launches
+    got = pool.maxpool_3x3_s2_nonneg(x)
+    assert pool.maxpool_3x3_s2_nonneg.launches == before + 1
+    assert torch.equal(got, pool.maxpool_plain(x))
+    lib = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    assert torch.equal(got, lib)
+
+
+def _basic_blocks(rng, c, n_blocks, dev, dtype):
+    def mk(shape, is_w=True):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             * (1 / (3 * c ** 0.5) if is_w else 0.1)).to(dev)
+        return a.to(dtype) if is_w else a
+
+    return [{"w1": mk((9, c, c)), "b1": mk((c,), False),
+             "w2": mk((9, c, c)), "b2": mk((c,), False)}
+            for _ in range(n_blocks)]
+
+
+@pytest.mark.parametrize("h,w,c", [(5, 7, 24), (6, 10, 24), (5, 7, 512),
+                                   (7, 7, 512), (14, 14, 256), (56, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_basic_stack_kernel(dev, h, w, c, dtype):
+    """Kernel 4 against its plain version elementwise; (7, 7, 512) in f32
+    takes the smallest tile (3 rows), (56, 3) many tiles of a thin map."""
+    rng = np.random.default_rng(h * w + c)
+    blocks = _basic_blocks(rng, c, 2, dev, dtype)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (3, h * w, c)).astype(np.float32))).to(dev, dtype)
+    before = bottleneck.fused_basic_stack.launches
+    got = bottleneck.fused_basic_stack(x, blocks, h=h, w=w)
+    assert bottleneck.fused_basic_stack.launches == before + 2
+    want = bottleneck.basic_stack_plain(x, blocks, h=h, w=w)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("h2,w2", [(10, 14), (12, 20), (112, 112)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_stack_kernel(dev, h2, w2, dtype):
+    """Kernel 5 equals kernel 6 then kernel 2 bit for bit, and its plain
+    version within kernel 2's bars; launches 1 of kernel 5, the tail
+    blocks on kernel 2."""
+    rng = np.random.default_rng(h2 + w2)
+    cin = 24 if h2 < 100 else 64
+    blocks = _blocks(rng, cin, 16, 40, 3, dev, dtype)
+    n = 2
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (n, h2, w2, cin)).astype(np.float32))).to(dev, dtype)
+    k5, k2 = (bottleneck.fused_pool_bottleneck_stack.launches,
+              bottleneck.fused_bottleneck_stack.launches)
+    got = bottleneck.fused_pool_bottleneck_stack(x, blocks)
+    assert bottleneck.fused_pool_bottleneck_stack.launches == k5 + 1
+    assert bottleneck.fused_bottleneck_stack.launches == k2 + 2
+    h, w = h2 // 2, w2 // 2
+    ref = bottleneck.bottleneck_stack_cuda(
+        pool.maxpool_cuda(x).reshape(n, h * w, cin), blocks, h=h, w=w)
+    assert torch.equal(got, ref)
+    want = bottleneck.pool_bottleneck_stack_plain(x, blocks)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_basic_pool_forward_gpu_matches_cpu(dev):
+    """resnet34 with every stage fused and the pool kernel (kernels 4 and
+    6), and resnet50 with the pool-fused stage 1 (kernel 5), in f32 on the
+    GPU against the same forwards on the CPU."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 96, 96, 3)).astype(np.float32))
+    for arch, opts, launched in (
+            ("resnet34", dict(fused_stages=(1, 2, 3, 4), pallas_pool=True),
+             {bottleneck.fused_basic_stack: 3 + 3 + 5 + 2,
+              pool.maxpool_3x3_s2_nonneg: 1}),
+            ("resnet50", dict(fused_stages=(1,), pallas_pool="fused"),
+             {bottleneck.fused_pool_bottleneck_stack: 1,
+              bottleneck.fused_bottleneck_stack: 2})):
+        folded = fold_batchnorm(random_state_dict(arch, seed=3, width=16),
+                                arch)
+        before = {k: k.launches for k in launched}
+        got = folded_feature_apply(folded, x.to(dev), arch=arch,
+                                   dtype=torch.float32, **opts)
+        assert {k: k.launches - before[k] for k in launched} == launched
+        want = folded_feature_apply(folded, x, arch=arch,
+                                    dtype=torch.float32, **opts)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

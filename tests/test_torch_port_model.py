@@ -132,10 +132,15 @@ def test_fused_and_unfused_port_agree(variables):
 
 
 def test_resolve_fused_stages():
+    """"auto" is (1,) on bottleneck archs and () on basic ones, as in the
+    reference; explicit tuples are honored on both families (the basic
+    stack is kernel 4)."""
     assert resolve_fused_stages("auto", arch="resnet50") == (1,)
     assert resolve_fused_stages("auto", arch="resnet18") == ()
-    with pytest.raises(NotImplementedError):
-        resolve_fused_stages((1,), arch="resnet34")
+    assert resolve_fused_stages((1,), arch="resnet34") == (1,)
+    assert resolve_fused_stages((1, 2, 3, 4), arch="resnet18") == (1, 2, 3, 4)
+    with pytest.raises(ValueError, match="out of range"):
+        resolve_fused_stages((5,), arch="resnet34")
 
 
 @pytest.mark.parametrize("h,w", [(72, 80), (80, 96)])
@@ -158,9 +163,18 @@ def test_feature_program_matches_reference(variables, h, w):
 
 
 def test_extract_config_refuses_unported_options():
-    """The stem-pool kernels and the s2d stem are not ported; int8 is the
-    only quantization scheme (the reference's own refusal)."""
-    for kw in ({"quant": "int4"}, {"pallas_pool": "fused"},
-               {"stem_s2d": True}, {"quant": "int8", "stem_s2d": True}):
+    """pallas_pool and stem_s2d are ported: the config takes them and
+    refuses only what the reference refuses (int8 with the s2d stem;
+    'fused' on a basic arch) plus a pool flag with no fused stage to run
+    it. int8 is the only quantization scheme (the reference's own
+    refusal)."""
+    for kw in ({"pallas_pool": "fused"}, {"pallas_pool": True},
+               {"stem_s2d": True}):
+        ExtractConfig(**kw)  # resnet50: "auto" fuses stage 1
+    for kw in ({"quant": "int4"}, {"pallas_pool": "on"},
+               {"quant": "int8", "stem_s2d": True},
+               {"arch": "resnet18", "fused_stages": (1, 2, 3, 4),
+                "pallas_pool": "fused"},
+               {"arch": "resnet34", "pallas_pool": True}):
         with pytest.raises(ValueError):
             ExtractConfig(**kw)
