@@ -26,6 +26,11 @@ Counterpart of ``eov_tpu/cli.py``'s commands of the same names:
                  <run dir>``, ``--select latest|best``); the last line
                  printed is ``{"top1": ..., "n": ...}``
 
+``extract``, ``classify`` and ``episode`` take ``--params`` as a
+torchvision .pth/.pt/.npz state_dict or a train-run directory (the
+checkpoint ``--select latest|best`` names on extract and classify, the
+newest on episode), as the reference's do.
+
 All but store-info run on the GPU (``--device cuda``, the default) and
 refuse to run without one unless ``--device cpu`` is given. Stores are
 interchangeable with the reference package's.
@@ -68,12 +73,21 @@ def _load_dataset(args):
 
 
 def _load_weights(args, arch: str):
+    """The backbone weights of ``--params``: a torchvision .pth/.pt/.npz
+    state_dict, or a train-run directory resolved by ``--select`` (the
+    checkpoint's model; a finetuned fc of any width is ignored)."""
     from eov_tpu_torch.models import resnet
+    from eov_tpu_torch.utils.checkpoint import read_state
 
     if args.params:
         try:
+            if os.path.isdir(args.params):
+                ckpt = _resolve_ckpt_dir(args.params,
+                                         getattr(args, "select", "latest"))
+                return resnet.check_state_dict(read_state(ckpt)["model"],
+                                               arch)
             return resnet.load_state_dict(args.params, arch)
-        except (ValueError, KeyError) as e:
+        except (ValueError, KeyError, FileNotFoundError) as e:
             raise SystemExit(f"--params {args.params} does not load as "
                              f"arch {arch}: {e}") from None
     print(
@@ -440,8 +454,11 @@ def _resolve_ckpt_dir(path: str, select: str = "latest") -> str:
     if select == "best":
         bj = os.path.join(path, "best.json")
         if not os.path.exists(bj):
-            raise SystemExit(f"--select best: no best.json under {path} — "
-                             "the run recorded no meta-val accuracy")
+            raise SystemExit(
+                f"--select best: no best.json under {path} — train with "
+                "--val-class-split to record per-epoch meta-val accuracy "
+                "(not ported yet: the port records it when run_training is "
+                "given a meta-val dataset)")
         with open(bj) as f:
             return os.path.join(path, json.load(f)["dir"])
     return latest_step_dir(path) or path
@@ -633,7 +650,8 @@ def _add_clips(p: argparse.ArgumentParser) -> None:
                    dest="synthetic_virtual",
                    help="virtual-agent rendering (UnrealAction analog)")
     p.add_argument("--params", default=None,
-                   help="torchvision .pth/.pt or .npz state_dict")
+                   help="train-run dir, or a torchvision .pth/.pt/.npz "
+                        "state_dict")
     p.add_argument("--arch", default=None,
                    help="backbone arch (resnet18/34/50/101/152)")
     p.add_argument("--num-segments", type=int, default=None)
@@ -674,6 +692,8 @@ def main(argv=None) -> int:
     quant_help = ("backbone precision: 'off' = the bf16/f32 forward "
                   "(default), 'int8' = the int8 forward (stage 1 through "
                   "kernel 7)")
+    select_help = ("when --params is a train-run dir: newest epoch "
+                   "checkpoint, or best.json's meta-val winner")
 
     ex = sub.add_parser("extract", help="dataset -> clip feature store")
     _add_common(ex)
@@ -686,6 +706,8 @@ def main(argv=None) -> int:
                     help="stem max-pool: 'off' = cuDNN (default), 'on' = "
                          "kernel 6, 'fused' = inside the stage-1 stack "
                          "(kernel 5, bottleneck archs); needs fused stages")
+    ex.add_argument("--select", choices=("latest", "best"), default="latest",
+                    help=select_help)
     ex.add_argument("--store-dtype", default=None,
                     choices=("float32", "float16"))
     ex.add_argument("--quant", default=None, choices=("off", "int8"),
@@ -719,6 +741,8 @@ def main(argv=None) -> int:
     _add_clips(cl)
     cl.add_argument("--quant", default=None, choices=("off", "int8"),
                     help="query precision; must match the support store's")
+    cl.add_argument("--select", choices=("latest", "best"), default="latest",
+                    help=select_help)
     cl.add_argument("--embodied", action="store_true",
                     help="add --virtual-store's clips to each class")
     cl.add_argument("--virtual-store", dest="virtual_store", default=None)

@@ -16,7 +16,8 @@ Counterpart of ``eov_tpu/ops/pallas_bottleneck.py``, with its grouping:
   then ``fused_bottleneck_stack`` bit for bit.
 * ``pack_basic_params`` / ``fused_basic_stack`` (kernel 4,
   ``csrc/basic_stack.cu``): a stack of stride-1 basic blocks (resnet18/34)
-  with C constant, one fused block per launch.
+  with C constant, one fused block per launch; bf16 on the tensor cores
+  (``wgmma``, tiles planned by ``basic_tile_plan``), f32 on FFMA.
 
 Rounding follows the reference chains: f32 accumulation; in a bottleneck
 block (``_run_chain``) y1 and y2 round to the compute dtype after
@@ -44,7 +45,7 @@ __all__ = ["pack_bottleneck_params", "fused_bottleneck_stack",
            "stack_flops_per_img", "fused_pool_bottleneck_stack",
            "pool_bottleneck_stack_plain", "pool_bottleneck_stack_cuda",
            "pack_basic_params", "fused_basic_stack", "basic_stack_plain",
-           "basic_stack_cuda", "basic_tile_rows"]
+           "basic_stack_cuda", "basic_tile_rows", "basic_tile_plan", "bf16_ulp"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _WEIGHTS = ("w1", "w2", "w3", "wd")
@@ -367,33 +368,57 @@ def _check_basic(x: torch.Tensor, blocks, h: int, w: int) -> None:
                              f"{tuple(b['w1'].shape)}")
 
 
-def basic_stack_plain(x: torch.Tensor, blocks, *, h: int,
-                      w: int) -> torch.Tensor:
-    """Plain PyTorch version of the basic stack (kernel 4's oracle)."""
+def basic_stack_plain(x: torch.Tensor, blocks, *, h: int, w: int,
+                      stream_max: bool = False):
+    """Plain PyTorch version of the basic stack (kernel 4's oracle).
+
+    ``stream_max=True`` also returns the magnitude the residual stream
+    carries at each element: the largest |x| at its pixel (over the
+    channels) over the stack (each block's input and the output), in f32,
+    broadcast over the channels. A rounding flip anywhere in a pixel's
+    3x3 x C products moves every channel there by ulps of that magnitude,
+    so an error is measured in its ulps; a ReLU knife edge, where the
+    stream is 0 in one channel at every block, then has a finite one."""
     _check_basic(x, blocks, h, w)
     dt = x.dtype
+    top = x.float().abs().amax(dim=-1, keepdim=True)
     for b in blocks:
         y1 = torch.relu(_conv3x3(x, b["w1"], h, w) + _bias(b["b1"])).to(dt)
         x = torch.relu(_conv3x3(y1, b["w2"], h, w) + _bias(b["b2"])
                        + x.float()).to(dt)
-    return x
+        if stream_max:
+            top = torch.maximum(top, x.float().abs().amax(dim=-1,
+                                                          keepdim=True))
+    return (x, top.expand(x.shape)) if stream_max else x
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The bf16 ulp at magnitude |v| (2^(floor(log2 |v|) - 7); that of the
+    smallest normal below it), in f32."""
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32),
+                       (e - 8).to(torch.float32))
 
 
 def _basic_lib():
     lib = _cuda.load("basic_stack")
-    fn = lib.basic_block_launch
-    if fn.argtypes is None:
+    if lib.basic_block_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 6 + [p]
-        fn.restype = ctypes.c_int
-        lib.basic_block_smem_bytes.argtypes = [i, i, i, i]
-        lib.basic_block_smem_bytes.restype = ctypes.c_longlong
+        lib.basic_block_launch.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.basic_block_bf16_launch.argtypes = [p] * 6 + [i] * 9 + [p]
+        for fn in (lib.basic_block_launch, lib.basic_block_bf16_launch):
+            fn.restype = ctypes.c_int
+        lib.basic_block_smem_bytes.argtypes = [i] * 3
+        lib.basic_block_bf16_smem_bytes.argtypes = [i] * 7
+        for fn in (lib.basic_block_smem_bytes,
+                   lib.basic_block_bf16_smem_bytes):
+            fn.restype = ctypes.c_longlong
     return lib
 
 
 def basic_tile_rows(smem_bytes, h: int, w: int) -> int:
-    """Kernel 4's output rows per thread block. ``smem_bytes(tr)`` is the
-    tile's shared memory. The most rows that keep the tile within
+    """Kernel 4's output rows per thread block in f32. ``smem_bytes(tr)``
+    is the tile's shared memory. The most rows that keep the tile within
     ``_BASIC_TILE_PX`` output pixels and two blocks per SM, then evened out
     over the tiles (the conv1 halo is recomputed per tile, so taller tiles
     waste less); one row if even that exceeds the two-per-SM budget."""
@@ -405,28 +430,115 @@ def basic_tile_rows(smem_bytes, h: int, w: int) -> int:
     return -(-h // tiles)
 
 
+# The bf16 kernel's block: two warpgroups, 64 pixels x 64 channels of
+# products per warp, a ring of three [NT, 64] weight tiles, a 128-byte zero
+# line.
+_MMA_WARPS = 8
+_MMA_STAGES = 3
+_MMA_ZERO = 128
+
+
+def _mma_smem(h: int, w: int, cp: int, wn: int, tr: int, g: int) -> int:
+    """Shared memory of a bf16 block (``mma_smem`` in basic_stack.cu): the
+    weight ring, one or two staged 64-channel x chunks of the block's rows
+    and halo, and y1 over its rows and halo at all channels."""
+    ring = 64 * 64 * wn * 2
+    xbuf = g * min(tr + 4, h) * w * 64 * 2
+    y1 = g * min(tr + 2, h) * w * cp * 2
+    return _MMA_ZERO + _MMA_STAGES * ring + (2 if cp > 64 else 1) * xbuf + y1
+
+
+def basic_tile_plan(h: int, w: int, c: int, n: int = 1) -> dict:
+    """The bf16 kernel's tiling of an [n, h*w, c] map: channels padded to
+    ``cp`` (a multiple of 64), ``NT = 64 wn`` output channels a pass
+    (dividing ``cp``) and ``m_tile = 512 / wn`` pixels (the block's 8 warps
+    hold 64 x 64 products each). Tile rows: the most whose y1 rows (with
+    the halo) fill one M pass within the shared memory, evened out over
+    the tiles; when the whole map fits, ``images`` maps per block (at most
+    ``n``). Returns ``tile_rows``, ``images``, ``cp``, ``wn``, ``m_tile``,
+    ``smem`` and the launch ``grid`` (row tiles, image groups)."""
+    cp = -(-c // 64) * 64
+    chunks = cp // 64
+    wn = 4 if chunks % 4 == 0 else 2 if chunks % 2 == 0 else 1
+    m_tile = _MMA_WARPS // wn * 64
+
+    def smem(tr, g=1):
+        return _mma_smem(h, w, cp, wn, tr, g)
+
+    if smem(1) > _MAX_SMEM:
+        raise ValueError(f"basic-block tile needs {smem(1)} B of shared "
+                         f"memory (> {_MAX_SMEM}) at w={w}, c={c}, one row")
+    tr = 1
+    while tr < h and min(tr + 3, h) * w <= m_tile and \
+            smem(tr + 1) <= _MAX_SMEM:
+        tr += 1
+    g = 1
+    if tr == h:
+        while g < n and (g + 1) * h * w <= m_tile and \
+                smem(h, g + 1) <= _MAX_SMEM:
+            g += 1
+    else:
+        tr = -(-h // -(-h // tr))
+    return {"tile_rows": tr, "images": g, "cp": cp, "wn": wn,
+            "m_tile": m_tile, "smem": smem(tr, g),
+            "grid": (-(-h // tr), -(-n // g))}
+
+
+def _mma_weights(w9: torch.Tensor, cp: int, nt: int) -> torch.Tensor:
+    """[9, C, C] tap-major -> [cp/nt, cp/64, 9, nt, 64], zero-padded to cp:
+    each (N pass, 64-channel chunk, tap) weight tile of the bf16 kernel is
+    contiguous and K-major (64 input channels per output channel), in the
+    order its K loop reads them."""
+    c = w9.shape[1]
+    if cp != c:
+        w9 = F.pad(w9, (0, cp - c, 0, cp - c))
+    return w9.reshape(9, cp // 64, 64, cp // nt, nt).permute(
+        3, 1, 0, 4, 2).contiguous()
+
+
 def basic_stack_cuda(x: torch.Tensor, blocks, *, h: int,
                      w: int) -> torch.Tensor:
     """Kernel 4, one launch per block, on CUDA tensors (weights packed in
-    x's dtype by ``pack_basic_params``, biases f32)."""
+    x's dtype by ``pack_basic_params``, biases f32): bf16 on the tensor
+    cores (wgmma), f32 on the FFMA kernel."""
     _check_basic(x, blocks, h, w)
     _check_cuda(x, blocks, "basic_stack_cuda")
     lib = _basic_lib()
     n, _, c = x.shape
-    bf16 = int(x.dtype == torch.bfloat16)
-    tr = basic_tile_rows(
-        lambda t: lib.basic_block_smem_bytes(bf16, w, c, t), h, w)
-    smem = lib.basic_block_smem_bytes(bf16, w, c, tr)
+    stream = _cuda.stream_ptr(x.device)
+    if x.dtype == torch.bfloat16:
+        plan = basic_tile_plan(h, w, c, n)
+        cp, wn, tr, g = plan["cp"], plan["wn"], plan["tile_rows"], \
+            plan["images"]
+        smem = lib.basic_block_bf16_smem_bytes(h, w, c, cp, tr, g, wn)
+        if smem != plan["smem"]:
+            raise RuntimeError(f"basic-block plan and kernel disagree on "
+                               f"shared memory: {plan['smem']} vs {smem}")
+        vec = int(c % 8 == 0 and x.data_ptr() % 16 == 0)
+        for b in blocks:
+            out = torch.empty_like(x)
+            # Held until the launch is enqueued: a relaid-out copy freed
+            # before that could hand its memory to the next allocation.
+            w1t, w2t = (_mma_weights(b[k], cp, 64 * wn) for k in ("w1", "w2"))
+            code = lib.basic_block_bf16_launch(
+                _cuda.ptr(x), _cuda.ptr(w1t), _cuda.ptr(b["b1"]),
+                _cuda.ptr(w2t), _cuda.ptr(b["b2"]), _cuda.ptr(out), n, h, w,
+                c, cp, tr, g, wn, vec, stream)
+            _cuda.check(code, "basic_stack")
+            fused_basic_stack.launches += 1
+            x, vec = out, int(c % 8 == 0)
+        return x
+    tr = basic_tile_rows(lambda t: lib.basic_block_smem_bytes(w, c, t), h, w)
+    smem = lib.basic_block_smem_bytes(w, c, tr)
     if smem > _MAX_SMEM:
         raise ValueError(f"basic-block tile needs {smem} B of shared memory "
                          f"(> {_MAX_SMEM}) at w={w}, c={c}, one row")
-    stream = _cuda.stream_ptr(x.device)
     for b in blocks:
         out = torch.empty_like(x)
         code = lib.basic_block_launch(
             _cuda.ptr(x), _cuda.ptr(b["w1"]), _cuda.ptr(b["b1"]),
             _cuda.ptr(b["w2"]), _cuda.ptr(b["b2"]), _cuda.ptr(out),
-            n, h, w, c, tr, bf16, stream)
+            n, h, w, c, tr, stream)
         _cuda.check(code, "basic_stack")
         fused_basic_stack.launches += 1
         x = out

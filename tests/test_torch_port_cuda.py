@@ -369,6 +369,69 @@ def test_basic_stack_kernel(dev, h, w, c, dtype):
                                atol=tol)
 
 
+# ResNet-34's fused basic stacks at 224^2: (h = w, C, blocks).
+RESNET34_STACKS = [(56, 64, 3), (28, 128, 3), (14, 256, 5), (7, 512, 2)]
+
+
+def _check_full_scale(x, blocks, h, w):
+    """Each block, fed the plain version's stream, within 2 bf16 ulps of
+    the magnitude the stream carries at the element's pixel
+    (``basic_stack_plain(stream_max=True)``); the whole stack at per-image
+    cosine >= 0.9999; one launch per block."""
+    xs = x
+    for b in blocks:
+        got = bottleneck.basic_stack_cuda(xs, [b], h=h, w=w)
+        want, top = bottleneck.basic_stack_plain(xs, [b], h=h, w=w,
+                                                 stream_max=True)
+        ulps = float(((got.float() - want.float()).abs()
+                      / bottleneck.bf16_ulp(top)).max())
+        assert ulps <= 2, ulps
+        xs = want
+    before = bottleneck.fused_basic_stack.launches
+    got = bottleneck.fused_basic_stack(x, blocks, h=h, w=w)
+    assert bottleneck.fused_basic_stack.launches == before + len(blocks)
+    want = bottleneck.basic_stack_plain(x, blocks, h=h, w=w)
+    cos = float(F.cosine_similarity(got.float().flatten(1),
+                                    want.float().flatten(1), dim=1).min())
+    assert cos >= 0.9999, cos
+
+
+@pytest.mark.parametrize("hw,c,nb", RESNET34_STACKS)
+def test_basic_stack_bf16_full_scale(dev, hw, c, nb):
+    """The bf16 tensor-core kernel at ResNet-34's stack shapes, 4 images,
+    LeCun-scale weights in both convs (``_check_full_scale``)."""
+    rng = np.random.default_rng(hw * c + nb)
+    blocks = _basic_blocks(rng, c, nb, dev, torch.bfloat16)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (4, hw * hw, c)).astype(np.float32))).to(dev, torch.bfloat16)
+    _check_full_scale(x, blocks, hw, hw)
+
+
+@pytest.mark.parametrize("h,w,c,n", [(7, 7, 512, 5), (5, 7, 512, 3),
+                                     (6, 10, 24, 9)])
+def test_basic_stack_bf16_ragged_image_groups(dev, h, w, c, n):
+    """A block spans several whole images; n is not a multiple of them, so
+    the last block holds fewer."""
+    plan = bottleneck.basic_tile_plan(h, w, c, n)
+    assert plan["images"] > 1 and n % plan["images"]
+    rng = np.random.default_rng(n * c)
+    blocks = _basic_blocks(rng, c, 2, dev, torch.bfloat16)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (n, h * w, c)).astype(np.float32))).to(dev, torch.bfloat16)
+    _check_full_scale(x, blocks, h, w)
+
+
+def test_basic_stack_bf16_smem_matches_plan(dev):
+    """The kernel's shared-memory layout is the planner's, at every
+    ResNet-18/34 stack shape."""
+    lib = bottleneck._basic_lib()
+    for hw, c, _ in RESNET34_STACKS:
+        p = bottleneck.basic_tile_plan(hw, hw, c, 256)
+        assert lib.basic_block_bf16_smem_bytes(
+            hw, hw, c, p["cp"], p["tile_rows"], p["images"],
+            p["wn"]) == p["smem"]
+
+
 @pytest.mark.parametrize("h2,w2", [(10, 14), (12, 20), (112, 112)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_stack_kernel(dev, h2, w2, dtype):
