@@ -279,12 +279,6 @@ __device__ __forceinline__ void stage_cursor(const MmaDims& d, const Tile& t,
   cur[4] = (kMmaThreads / 8) - cur[3] * d.w;
 }
 
-// Offset in elements of channel n of pixel pix in a swizzled buffer of
-// pitch cp: the 16-byte line (n/8)%8 is XORed with pix%8.
-__device__ __forceinline__ int swz(int pix, int cp, int n) {
-  return pix * cp + (n & ~63) + ((((n >> 3) & 7) ^ (pix & 7)) << 3) + (n & 7);
-}
-
 // Stage 64 channels [c0, c0 + 64) of the block's x rows into xb, pixel by
 // pixel in (image, row, column) order; channels >= c are zero. The
 // thread's cursor (g, xr, col) walks 32 pixels a step without division.
@@ -329,23 +323,6 @@ __device__ __forceinline__ void stage_x(const MmaDims& d, const Tile& t,
       ++g;
     }
   }
-}
-
-template <int kNW>
-__device__ __forceinline__ void wgmma_tile(float (&d)[kNW / 2],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc);
-template <>
-__device__ __forceinline__ void wgmma_tile<64>(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc) {
-  wgmma_m64n64(d, a, desc);
-}
-template <>
-__device__ __forceinline__ void wgmma_tile<128>(float (&d)[64],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  wgmma_m64n128(d, a, desc);
 }
 
 // acc = one M pass [m0, m0 + MT) x N pass np of one 3x3 conv: phase A (kB

@@ -7,12 +7,10 @@
 // fused_bottleneck_stack (_stack_kernel / _run_chain). The TPU design keeps
 // a whole 56x56 map in 128 MiB of VMEM with no spatial tiling; a Hopper SM
 // has 227 KB of shared memory, so here one thread block owns TR output rows
-// of one image through one block:
+// of one image (or G whole images of a small map) through one block:
 //   phase A: conv1 (+bias, ReLU, rounded to T) over the TR rows plus a one
 //            row halo above and below, recomputed per tile, into shared
-//            memory with a zero column at each edge (the zero padding of the
-//            3x3, in place of the TPU's column masks; rows outside the image
-//            are zero too);
+//            memory (rows outside the image are never read);
 //   phase B: the 3x3 as one GEMM with K = 9*Cmid whose A operand reads the 9
 //            taps straight from that buffer (+bias, ReLU, rounded to T);
 //   phase C: conv3, plus the projection x*wd + bd (or x widened to f32),
@@ -23,31 +21,63 @@
 // Bound on the H100: operations. ResNet-50 stage 1 is ~1.34 GFLOP per image
 // against ~2 MB of input and output, far above the card's ~295 flops/byte
 // balance point, so the least time is the flops over the bf16 tensor-core
-// peak. This first version is the simple, right one: every GEMM is a tiled
-// FFMA loop (A and weight chunks staged in shared memory as f32, a 128x64
-// output tile per block, 8x4 outputs per thread), it recomputes conv1 on the
-// halo rows, and it does not use the tensor cores. wgmma with TMA-fed
-// weight tiles is the way to the bound and is later work.
+// peak (342 GFLOP, 0.346 ms at 256 images). One launch per block moves each
+// block's input and output through device memory: 2.16 GB over ResNet-50
+// stage 1 at 256 images, a floor of 0.64 ms that only a kernel holding the
+// whole stack on chip (the TPU's design; a 56^2 x 256 map is 1.6 MB) avoids.
+//
+// bf16 (bottleneck_bf16_kernel) runs every product on the tensor cores,
+// over mma_tile.cuh, the way kernel 4 (basic_stack.cu) does:
+// - Each phase is an implicit GEMM: M = pixels, N = output channels in
+//   passes of NT = 64 wn, K = 64-channel chunks (x 9 taps in phase B) x 4
+//   k16 steps. A comes to registers by ldmatrix through per-row addresses
+//   (divided once per M pass; a tap adds dy*W + dx and sends a row outside
+//   the image, or past M, to a zero line), so no integer division runs per
+//   element and widths 7, 14, 28 cost nothing. B, the weights, is a K-major
+//   128-byte-swizzled [NT][64] tile that reaches a 3-deep ring by cp.async
+//   while the tensor cores work on the step before (one barrier a step;
+//   the next pass's first tile loads during a pass's epilogue); the
+//   wrapper relays the weights out once per call in the order the K loops
+//   read them. Products: wgmma m64n64k16 (NT 64, 128) or m64n128k16
+//   (NT 256), f32 sums in registers, every m64 tile issued unconditionally
+//   (a branch around wgmma makes ptxas serialize them).
+// - Phase A stages each 64-channel chunk of the x rows (tile + halo) once
+//   by cp.async into an XOR-swizzled tile (two buffers taking turns, one
+//   step ahead, when cin > 64; at cin = 64 the one chunk is staged first
+//   and stays for phase C's projection). y1 and y2 are XOR-swizzled too;
+//   y2 takes y1's place when phase B is one M pass and one N pass (all of
+//   y1 is read before y2 is written).
+// - Phase C runs K over y2's chunks, then, on an entry block, the
+//   projection's chunks of x; one f32 sum holds both (wd and w3 are one
+//   K-concatenated weight). The identity residual is read from x. Its
+//   epilogue transposes each quad's accumulators so that a lane loads and
+//   stores 16 bytes (8 channels) of a row.
+// - Tiles: ops/bottleneck.py bottleneck_tile_plan picks TR, G and the N
+//   pass widths that fit the 227 KB and take the fewest K steps per image
+//   (bottleneck_bf16_smem_bytes must agree with it).
+//
+// f32 keeps the FFMA kernel (bottleneck_block_kernel, block_gemm of
+// tile_gemm.cuh): TF32 would not meet the f32 bar of 1e-4.
 //
 // Rounding follows _run_chain: products of T values accumulate in f32, y1
 // and y2 round to T after bias+ReLU, and y3 + b3 + residual is summed in f32
 // before the final ReLU and the one rounding.
 //
-// Kernel 5, the pool-at-entry launcher (pool_bottleneck_block_launch), is
-// the same kernel with kPool set. It replaces
+// Kernel 5, the pool-at-entry launchers (pool_bottleneck_block_*launch),
+// is the same code with kPool set. It replaces
 // eov_tpu/ops/pallas_bottleneck.py fused_pool_bottleneck_stack
 // (_pool_stack_kernel): the stem's 3x3/s2 max-pool of the post-ReLU map
-// [N, 2H, 2W, 64] runs in the x loader, for the conv1 halo rows and for
-// the projection residual alike, each pooled pixel from its 3x3 window of
-// the pre-pool map, so the pooled [N, H, W, 64] map is never written or
-// read back. The wrapper launches the stage's first block (the projection
-// block) through it and the other blocks through kernel 2. Bound: the
-// stack's operations, as for kernel 2 (ResNet-50 stage 1 at 256 images bf16:
-// 342 GFLOP, 0.346 ms; its 822 MB of input and output take 0.245 ms). The
-// pool costs 9 loads per pooled value each time the loader reads it (once
-// for conv1, once per 64-channel tile of the projection): they hit L1/L2,
-// and the FFMA GEMMs dominate.
+// [N, 2H, 2W, 64] builds the block's input, so the pooled [N, H, W, 64] map
+// is never written or read back. In bf16 (cin <= 64) the pool runs once,
+// before phase A, writing the pooled x rows of the tile and its halo into
+// the tile kernel 2 stages from the pooled map; in f32 it runs in the FFMA
+// kernel's x loader. Each pooled value is the same fmaxf sequence as kernel 6
+// (maxpool_s2.cu), and every later line is kernel 2's, so the block equals
+// maxpool -> kernel 2 in value. The wrapper launches the stage's first
+// block (the projection block) through it and the other blocks through
+// kernel 2.
 
+#include "mma_tile.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -56,11 +86,12 @@ struct Dims {
   int n, h, w, cin, cmid, cout, tile_rows;
 };
 
-// kPool (kernel 5): x is the PRE-pool map [N, 2H, 2W, cin] and the block's
-// input is its 3x3/s2 max-pool, built pixel by pixel in the x loader
-// (pool3x3s2_at), so the pooled map never reaches device memory. Every
-// other line is kernel 2's: the GEMMs see the same operand values in the
-// same order, so the block's output equals maxpool -> kernel 2 bit for bit.
+// f32 (FFMA). kPool (kernel 5): x is the PRE-pool map [N, 2H, 2W, cin] and
+// the block's input is its 3x3/s2 max-pool, built pixel by pixel in the x
+// loader (pool3x3s2_at), so the pooled map never reaches device memory.
+// Every other line is kernel 2's: the GEMMs see the same operand values in
+// the same order, so the block's output equals maxpool -> kernel 2 bit for
+// bit.
 template <typename T, bool kPool>
 __global__ void __launch_bounds__(kThreads)
 bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -197,76 +228,901 @@ bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-template <typename T>
 size_t smem_bytes(const Dims& d) {
   return kGemmSmem +
-         sizeof(T) * ((size_t)(d.tile_rows + 2) * (d.w + 2) * d.cmid +
-                      (size_t)d.tile_rows * d.w * d.cmid);
-}
-
-template <typename T, bool kPool>
-int launch(const void* x, const void* w1, const float* b1, const void* w2,
-           const float* b2, const void* w3, const float* b3, const void* wd,
-           const float* bd, void* out, Dims d, cudaStream_t s) {
-  const size_t smem = smem_bytes<T>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_block_kernel<T, kPool>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((d.h + d.tile_rows - 1) / d.tile_rows, d.n);
-  bottleneck_block_kernel<T, kPool><<<grid, kThreads, smem, s>>>(
-      (const T*)x, (const T*)w1, b1, (const T*)w2, b2, (const T*)w3, b3,
-      (const T*)wd, bd, (T*)out, d);
-  return (int)cudaGetLastError();
+         sizeof(float) * ((size_t)(d.tile_rows + 2) * (d.w + 2) * d.cmid +
+                          (size_t)d.tile_rows * d.w * d.cmid);
 }
 
 template <bool kPool>
-int launch_dtype(const void* x, const void* w1, const void* b1,
-                 const void* w2, const void* b2, const void* w3,
-                 const void* b3, const void* wd, const void* bd, void* out,
-                 Dims d, int bf16, cudaStream_t s) {
+int launch(const void* x, const void* w1, const void* b1, const void* w2,
+           const void* b2, const void* w3, const void* b3, const void* wd,
+           const void* bd, void* out, Dims d, cudaStream_t s) {
   if (d.n == 0 || d.h == 0 || d.w == 0) return (int)cudaGetLastError();
-  if (bf16)
-    return launch<__nv_bfloat16, kPool>(
-        x, w1, (const float*)b1, w2, (const float*)b2, w3, (const float*)b3,
-        wd, (const float*)bd, out, d, s);
-  return launch<float, kPool>(x, w1, (const float*)b1, w2, (const float*)b2,
-                              w3, (const float*)b3, wd, (const float*)bd, out,
-                              d, s);
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      bottleneck_block_kernel<float, kPool>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((d.h + d.tile_rows - 1) / d.tile_rows, d.n);
+  bottleneck_block_kernel<float, kPool><<<grid, kThreads, smem, s>>>(
+      (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
+      (const float*)b2, (const float*)w3, (const float*)b3,
+      (const float*)wd, (const float*)bd, (float*)out, d);
+  return (int)cudaGetLastError();
+}
+
+
+// ------------------------------------------------ bf16 on the tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int kMmaThreads = 256;  // two warpgroups
+constexpr int kStages = 3;        // weight tiles in flight
+constexpr int kZeroBytes = 128;   // the zero line padding reads point at
+
+struct MmaDims {
+  int n, h, w, cin, cmid, cout;
+  int cinp, cmidp, coutp;  // channels rounded up to 64
+  int tile_rows;           // TR output rows per block (h when images > 1)
+  int images;              // G images per block
+  int wn1;                 // N pass of conv1 and conv2: 64 wn1 channels
+  int wn3;                 // N pass of conv3: 64 wn3 channels
+  int proj;                // projection shortcut (wd, bd)
+  int vec;                 // cin, cout % 8 == 0, x 16-byte aligned
+};
+
+struct MmaSmem {
+  int ring;     // one weight tile [64 max(wn1, wn3)][64] bf16
+  int xbuf;     // one x chunk [G][min(TR+2, h)][w][64] bf16
+  int nxbuf;    // two chunks taking turns when cin > 64, else the one
+  int y1;       // y1 [G][min(TR+2, h)][w][cmidp] bf16
+  int overlay;  // y2 in y1's place: phase B is one M pass, one N pass
+  int y2;       // y2 [G * TR * w][cmidp] bf16, unless overlaid
+  int total;
+};
+
+__host__ __device__ inline MmaSmem mma_smem(const MmaDims& d) {
+  MmaSmem s;
+  const int yrows = imin(d.tile_rows + 2, d.h);
+  s.ring = 64 * 64 * 2 * imax(d.wn1, d.wn3);
+  s.xbuf = d.images * yrows * d.w * 128;
+  s.nxbuf = d.cinp > 64 ? 2 : 1;
+  s.y1 = d.images * yrows * d.w * d.cmidp * 2;
+  s.overlay = d.cmidp == 64 * d.wn1 &&
+              d.images * d.tile_rows * d.w <= 512 / d.wn1;
+  s.y2 = s.overlay ? 0 : d.images * d.tile_rows * d.w * d.cmidp * 2;
+  s.total = kZeroBytes + kStages * s.ring + s.nxbuf * s.xbuf + s.y1 + s.y2;
+  return s;
+}
+
+// The rows and images of one thread block.
+struct Tile {
+  int g0, gcount;  // images [g0, g0 + gcount)
+  int r0, rows;    // output rows [r0, r0 + rows)
+  int lo, hi;      // y1 rows computed and x rows staged: [lo, hi)
+  int yrows;       // rows per image in the x and y1 buffers
+};
+
+struct Bufs {
+  uint32_t ring, zero, x, y1, y2;
+  MmaSmem L;
+};
+
+// The weight ring first (1024-byte aligned), then the zero line, the x
+// chunks, y1 and y2.
+__device__ __forceinline__ Bufs make_bufs(unsigned char* smem,
+                                          const MmaDims& d) {
+  Bufs sb;
+  sb.L = mma_smem(d);
+  sb.ring = smem_u32(smem);
+  sb.zero = sb.ring + kStages * sb.L.ring;
+  sb.x = sb.zero + kZeroBytes;
+  sb.y1 = sb.x + sb.L.nxbuf * sb.L.xbuf;
+  sb.y2 = sb.L.overlay ? sb.y1 : sb.y1 + sb.L.y1;
+  return sb;
+}
+
+__device__ __forceinline__ Tile make_tile(const MmaDims& d) {
+  Tile t;
+  t.g0 = blockIdx.y * d.images;
+  t.gcount = imin(d.images, d.n - t.g0);
+  t.r0 = blockIdx.x * d.tile_rows;
+  t.rows = imin(d.tile_rows, d.h - t.r0);
+  t.lo = imax(t.r0 - 1, 0);
+  t.hi = imin(t.r0 + t.rows + 1, d.h);
+  t.yrows = imin(d.tile_rows + 2, d.h);
+  return t;
+}
+
+// x staging cursor: pixel tid/8 as (image, buffer row, column), and the
+// rows and columns of a 32-pixel step (divided once here).
+__device__ __forceinline__ void stage_cursor(const MmaDims& d, const Tile& t,
+                                             int (&cur)[5]) {
+  const int p = threadIdx.x >> 3, q = p / d.w;
+  cur[2] = p - q * d.w;
+  cur[0] = q / t.yrows;
+  cur[1] = q - cur[0] * t.yrows;
+  cur[3] = (kMmaThreads / 8) / d.w;
+  cur[4] = (kMmaThreads / 8) - cur[3] * d.w;
+}
+
+// The 3x3/s2 max-pool of 8 channels of pooled pixel (r, c) of one pre-pool
+// image [2h][w2][cin] (16-byte aligned loads), in pool3x3s2_at's order:
+// pool8_load issues the nine loads together (a tap above or left of the
+// image is clamped onto the window's first row or column, which repeats a
+// value of the window and leaves the max unchanged, up to the sign of a
+// zero), pool8_max reduces them.
+__device__ __forceinline__ void pool8_load(const bf16* __restrict__ img,
+                                           int w2, int cin, int r, int c,
+                                           int cb, uint4 (&tp)[9]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int y = imax(2 * r + i / 3 - 1, 0), xx = imax(2 * c + i % 3 - 1, 0);
+    tp[i] = *reinterpret_cast<const uint4*>(img + ((size_t)y * w2 + xx) * cin +
+                                            cb);
+  }
+}
+
+__device__ __forceinline__ void pool8_max(const uint4 (&tp)[9], int r, int c,
+                                          uint32_t (&v)[4]) {
+  float m[8];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const int k = i == 0 ? 4 : i <= 4 ? i - 1 : i;  // the centre first
+    const uint32_t u[4] = {tp[k].x, tp[k].y, tp[k].z, tp[k].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u[j]));
+      m[2 * j] = i == 0 ? f.x : fmaxf(m[2 * j], f.x);
+      m[2 * j + 1] = i == 0 ? f.y : fmaxf(m[2 * j + 1], f.y);
+    }
+  }
+  const bool pad = r == 0 || c == 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = pad ? pack_bf16x2(fmaxf(m[2 * j], 0.f), fmaxf(m[2 * j + 1], 0.f))
+               : pack_bf16x2(m[2 * j], m[2 * j + 1]);
+}
+
+__device__ __forceinline__ void pool8(const bf16* __restrict__ img, int w2,
+                                      int cin, int r, int c, int cb,
+                                      uint32_t (&v)[4]) {
+  uint4 tp[9];
+  pool8_load(img, w2, cin, r, c, cb, tp);
+  pool8_max(tp, r, c, v);
+}
+
+// Kernel 5's staged input (cin % 8 == 0, at most 64): the pooled x rows
+// [lo, hi) of the block's images, as stage_x lays them out, built before
+// phase A with no sums live, so four pixels' 36 loads are in flight at once.
+__device__ __forceinline__ void stage_pool(const MmaDims& d, const Tile& t,
+                                           const bf16* __restrict__ x,
+                                           uint32_t xb, int g, int xr,
+                                           int col, int dq, int dr) {
+  constexpr int kU = 4;
+  const int seg = threadIdx.x & 7, cb = seg * 8;
+  const int npix = t.gcount * t.yrows * d.w;
+  for (int sp = threadIdx.x >> 3; sp < npix; sp += kU * (kMmaThreads / 8)) {
+    uint4 tp[kU][9];
+    int rr[kU], cc[kU];
+    bool on[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      rr[u] = t.lo + xr;
+      cc[u] = col;
+      on[u] = sp + u * (kMmaThreads / 8) < npix && rr[u] < t.hi;
+      if (on[u] && cb < d.cin)
+        pool8_load(x + (size_t)(t.g0 + g) * 4 * d.h * d.w * d.cin, 2 * d.w,
+                   d.cin, rr[u], cc[u], cb, tp[u]);
+      col += dr;
+      xr += dq;
+      if (col >= d.w) {
+        col -= d.w;
+        ++xr;
+      }
+      while (xr >= t.yrows) {
+        xr -= t.yrows;
+        ++g;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (!on[u]) continue;
+      const int p = sp + u * (kMmaThreads / 8);
+      const uint32_t dst = xb + p * 128 + ((seg ^ (p & 7)) << 4);
+      uint32_t v[4] = {0, 0, 0, 0};
+      if (cb < d.cin) pool8_max(tp[u], rr[u], cc[u], v);
+      st_shared_v4(dst, v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// Stage channels [c0, c0 + 64) of the block input at rows [lo, hi) of each
+// of the block's images into xb: pixel (g, r, col) at buffer pixel
+// (g yrows + r - lo) w + col, its 16-byte line s at s ^ (pixel % 8);
+// channels >= cin are zero. kPool: the input is the 3x3/s2 max-pool of the
+// pre-pool map x [n, 2h, 2w, cin], built here channel by channel (any
+// cin; stage_pool is the vector form). The thread's cursor (g, xr, col)
+// walks 32 pixels a step without division.
+template <bool kPool>
+__device__ __forceinline__ void stage_x(const MmaDims& d, const Tile& t,
+                                        const bf16* __restrict__ x, int c0,
+                                        uint32_t xb, int g, int xr, int col,
+                                        int dq, int dr) {
+  const int seg = threadIdx.x & 7;
+  const int cb = c0 + seg * 8;
+  const int npix = t.gcount * t.yrows * d.w;
+  for (int sp = threadIdx.x >> 3; sp < npix; sp += kMmaThreads / 8) {
+    const int row = t.lo + xr;
+    if (row < t.hi) {
+      const uint32_t dst = xb + sp * 128 + ((seg ^ (sp & 7)) << 4);
+      if (cb >= d.cin) {
+        st_shared_v4(dst, 0, 0, 0, 0);
+      } else if (kPool) {
+        const bf16* img = x + (size_t)(t.g0 + g) * 4 * d.h * d.w * d.cin;
+        float m[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          m[j] = cb + j < d.cin
+                     ? pool3x3s2_at(img, 2 * d.w, d.cin, row, col, cb + j)
+                     : 0.f;
+        st_shared_v4(dst, pack_bf16x2(m[0], m[1]), pack_bf16x2(m[2], m[3]),
+                     pack_bf16x2(m[4], m[5]), pack_bf16x2(m[6], m[7]));
+      } else {
+        const size_t pix = ((size_t)(t.g0 + g) * d.h + row) * d.w + col;
+        const bf16* src = x + pix * d.cin + cb;
+        if (d.vec) {
+          cp_async16(dst, src);
+        } else {
+          const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+          uint32_t v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t a = cb + 2 * j < d.cin ? s[2 * j] : 0u;
+            const uint32_t b = cb + 2 * j + 1 < d.cin ? s[2 * j + 1] : 0u;
+            v[j] = a | (b << 16);
+          }
+          st_shared_v4(dst, v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    col += dr;
+    xr += dq;
+    if (col >= d.w) {
+      col -= d.w;
+      ++xr;
+    }
+    while (xr >= t.yrows) {
+      xr -= t.yrows;
+      ++g;
+    }
+  }
+}
+
+enum Phase { kConv1, kConv2, kConv3 };
+
+// acc = one M pass [m0, m0 + MT) x N pass np of one phase. M counts the
+// phase's pixels in (image, row, column) order: rows [lo, hi) for conv1,
+// the output rows for conv2 and conv3. K steps: conv1 the x chunks; conv2
+// y1's chunks x 9 taps; conv3 y2's chunks, then (projection) the x chunks.
+// Warpgroup wg owns kMF m64 tiles x kNW channels: the two warpgroups split
+// the pass's NT channels when NT > kNW, else its MT = 2 kMF 64 pixels. A
+// comes by ldmatrix from the x, y1 or y2 tile, B is the ring's [NT][64]
+// K-major swizzled weight tile; one wgmma per m64 tile and k16 step.
+// ``stage``: the x chunks are staged by the step loads (else resident;
+// kernel 5's pooled input always is). The ring slot of step s is
+// (gs + s) % kStages, gs counting the block's steps so far (advanced
+// here). ``wnext`` (nt_next channels), when not null, is the next pass's
+// first weight tile: loaded at the end of this pass, so that its latency
+// hides behind this pass's epilogue; the next pass is then called with
+// ``prefetched`` (and must stage no x at its first step).
+template <Phase kPh>
+__device__ __forceinline__ int phase_steps(const MmaDims& d) {
+  const int kmid = d.cmidp >> 6, kin = d.cinp >> 6;
+  return kPh == kConv1 ? kin
+         : kPh == kConv2 ? kmid * 9
+                         : kmid + (d.proj ? kin : 0);
+}
+
+__device__ __forceinline__ void load_tile(const Bufs& sb, int slot,
+                                          const bf16* __restrict__ src,
+                                          int nt) {
+  const uint32_t dst = sb.ring + slot * sb.L.ring;
+  for (int i = threadIdx.x; i < 8 * nt; i += kMmaThreads) {
+    const int n = i >> 3, kc = i & 7;
+    cp_async16(dst + n * 128 + ((kc ^ (n & 7)) << 4), src + i * 8);
+  }
+}
+
+template <Phase kPh, int kMF, int kNW>
+__device__ __forceinline__ void mma_pass(
+    float (&acc)[kMF][kNW / 2], const MmaDims& d, const Tile& t,
+    const Bufs& sb, const bf16* __restrict__ x, const bf16* __restrict__ wt,
+    int m0, int np, int M, bool stage, const int (&cur)[5], int& gs,
+    bool prefetched, const bf16* wnext, int nt_next) {
+  const int W = d.w, H = d.h;
+  const int NT = 64 * (kPh == kConv3 ? d.wn3 : d.wn1);
+  const int kmid = d.cmidp >> 6, kin = d.cinp >> 6;
+  // x chunks: steps [xs0, xs0 + kx) read chunk s - xs0 of x.
+  const int xs0 = kPh == kConv3 ? kmid : 0;
+  const int kx = kPh == kConv1 || (kPh == kConv3 && d.proj) ? kin : 0;
+  const int nsteps = phase_steps<kPh>(d);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wg = warp >> 2, wq = warp & 3;
+  const bool wg_along_n = NT > kNW;
+  const int wg_m = wg_along_n ? 0 : wg, wg_n = wg_along_n ? wg : 0;
+  const int base0 = m0 + wg_m * kMF * 64;
+
+  // Row p of the A fragments: image row fr (-2 past M), column fc, pixel
+  // fb in the x / y1 buffers; p itself is y2's pixel.
+  const int row0 = kPh == kConv1 ? t.lo : t.r0;
+  const int R = kPh == kConv1 ? t.hi - t.lo : t.rows;
+  int fr[kMF], fc[kMF], fb[kMF];
+#pragma unroll
+  for (int f = 0; f < kMF; ++f) {
+    const int p = base0 + f * 64 + wq * 16 + (lane & 15);
+    fr[f] = -2;
+    fc[f] = 0;
+    fb[f] = 0;
+    if (p < M) {
+      const int q = p / W, col = p - q * W;
+      const int g = q / R, r = row0 + (q - g * R);
+      fr[f] = r;
+      fc[f] = col;
+      fb[f] = (g * t.yrows + r - t.lo) * W + col;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < kMF; ++f)
+#pragma unroll
+    for (int e = 0; e < kNW / 2; ++e) acc[f][e] = 0.f;
+
+  __syncthreads();
+
+  const bf16* wpass = wt + (size_t)np * nsteps * 64 * NT;
+  // Step s's weight tile, kStages - 1 steps ahead.
+  auto load_w = [&](int s) {
+    load_tile(sb, (gs + s) % kStages, wpass + (size_t)s * 64 * NT, NT);
+  };
+  // x chunk c (read at step xs0 + c), one step ahead and in a commit
+  // group of its own, so two chunk buffers take turns.
+  auto load_x = [&](int c) {
+    if (stage && c >= 0 && c < kx)
+      stage_x<false>(d, t, x, c * 64, sb.x + (c % sb.L.nxbuf) * sb.L.xbuf,
+                     cur[0], cur[1], cur[2], cur[3], cur[4]);
+  };
+
+  // Groups: [x 0 (conv1), w 0] (w 0 alone, committed by the pass before,
+  // when prefetched), [w 1], then per step s [x s + 1 - xs0], [w s + 2];
+  // so at step s all but the newest group have landed.
+  load_x(-xs0);
+  if (!prefetched) load_w(0);
+  cp_async_commit();
+  if (1 < nsteps) load_w(1);
+  cp_async_commit();
+
+  const int khalf = lane >> 4;
+  int ch = 0, ky = 0, kxx = 0;  // conv2: chunk and tap of step s
+  for (int s = 0; s < nsteps; ++s) {
+    // Step s's tiles have landed (this thread's copies, made visible to
+    // wgmma's proxy, then everyone's); step s - 1's slots are free.
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    load_x(s + 1 - xs0);
+    cp_async_commit();
+    if (s + 2 < nsteps) load_w(s + 2);
+    cp_async_commit();
+
+    uint32_t aaddr[kMF];
+    int akey[kMF];
+    if (kPh == kConv2) {
+      const int dy = ky - 1, dx = kxx - 1;
+      const uint32_t abuf = sb.y1 + ch * 128;
+#pragma unroll
+      for (int f = 0; f < kMF; ++f) {
+        const bool ok = (unsigned)(fr[f] + dy) < (unsigned)H &&
+                        (unsigned)(fc[f] + dx) < (unsigned)W;
+        const int pix = fb[f] + dy * W + dx;
+        aaddr[f] = ok ? abuf + pix * (d.cmidp * 2) : sb.zero;
+        akey[f] = ok ? (pix & 7) : 0;
+      }
+    } else {
+      const int c = s - xs0;
+      const bool from_x = c >= 0;
+      const uint32_t abuf =
+          from_x ? sb.x + (c % sb.L.nxbuf) * sb.L.xbuf : sb.y2 + s * 128;
+      const int pitch = from_x ? 128 : d.cmidp * 2;
+#pragma unroll
+      for (int f = 0; f < kMF; ++f) {
+        const bool ok = fr[f] != -2;
+        const int pix =
+            from_x ? fb[f] : base0 + f * 64 + wq * 16 + (lane & 15);
+        aaddr[f] = ok ? abuf + pix * pitch : sb.zero;
+        akey[f] = ok ? (pix & 7) : 0;
+      }
+    }
+    const uint32_t bslot =
+        sb.ring + ((gs + s) % kStages) * sb.L.ring + wg_n * kNW * 128;
+    // The next k16 step's A fragments load while this step's products
+    // run (one group in flight); all have finished when the step ends, so
+    // the ring slot can be refilled after the next barrier. Every m64 tile
+    // is multiplied, also one past M (its rows read the zero line).
+    uint32_t a[2][kMF][4];
+#pragma unroll
+    for (int f = 0; f < kMF; ++f)
+      ldsm_x4(a[0][f], aaddr[f] + ((khalf ^ akey[f]) << 4));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wg_fence();
+#pragma unroll
+      for (int f = 0; f < kMF; ++f)
+        wgmma_tile<kNW>(acc[f], a[kk & 1][f], sw128_desc(bslot + kk * 32));
+      wg_commit();
+      if (kk < 3) {
+        wg_wait1();  // step kk - 1 done: its A registers take kk + 1's
+#pragma unroll
+        for (int f = 0; f < kMF; ++f)
+          ldsm_x4(a[(kk + 1) & 1][f],
+                  aaddr[f] + (((((kk + 1) << 1) + khalf) ^ akey[f]) << 4));
+      }
+    }
+    wg_wait0();
+    if (kPh == kConv2 && ++kxx == 3) {
+      kxx = 0;
+      if (++ky == 3) ky = 0, ++ch;
+    }
+  }
+  gs += nsteps;
+  if (wnext != nullptr) {
+    // Its slot's last reader, step nsteps - 3 (or a pass before), is done.
+    load_tile(sb, gs % kStages, wnext, nt_next);
+    cp_async_commit();
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+}
+
+// The pass geometry of one phase: N pass width, warpgroup split, M tile.
+template <int kMF, int kNW>
+struct PassGeom {
+  int NT, npass, wg_m, wg_n, MT;
+  __device__ __forceinline__ PassGeom(int wn, int chans_p) {
+    NT = 64 * wn;
+    npass = chans_p / NT;
+    const bool along_n = NT > kNW;
+    const int wg = threadIdx.x >> 7;
+    wg_m = along_n ? 0 : wg;
+    wg_n = along_n ? wg : 0;
+    MT = (along_n ? 1 : 2) * kMF * 64;
+  }
+  // The pass row of accumulator row (f, half) and its first channel j = 0.
+  __device__ __forceinline__ int row(int m0, int f, int half) const {
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    return m0 + wg_m * kMF * 64 + f * 64 + wq * 16 + (lane >> 2) + half * 8;
+  }
+  __device__ __forceinline__ int chan(int np, int j) const {
+    return np * NT + wg_n * kNW + j * 8 + 2 * (threadIdx.x & 3);
+  }
+};
+
+// Quad transpose of one accumulator row: lane q (= lane % 4) holds, for
+// the four 8-channel groups jj, the channels 8 jj + 2q + {0, 1} (e[jj]);
+// afterwards it holds the 8 channels of group q (t[0..7]), for one 16-byte
+// load and store per lane where the accumulator layout gives 4 bytes.
+__device__ __forceinline__ void quad_transpose(const float2 (&e)[4],
+                                               float (&t)[8]) {
+  const int q = threadIdx.x & 3;
+  float2 u[4];  // u[r]: from lane q ^ r, its channels 2 (q ^ r) + {0, 1}
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q ^ r;
+    const float2 v = i == 0 ? e[0] : i == 1 ? e[1] : i == 2 ? e[2] : e[3];
+    u[r].x = __shfl_xor_sync(0xffffffffu, v.x, r);
+    u[r].y = __shfl_xor_sync(0xffffffffu, v.y, r);
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int r = p ^ q;
+    const float2 v = r == 0 ? u[0] : r == 1 ? u[1] : r == 2 ? u[2] : u[3];
+    t[2 * p] = v.x;
+    t[2 * p + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void unpack8(const uint32_t (&v)[4],
+                                        float (&f)[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 p = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v[j]));
+    f[2 * j] = p.x;
+    f[2 * j + 1] = p.y;
+  }
+}
+
+// Phase C's epilogue, cout % 8 == 0 and x 16-byte aligned: out =
+// relu((acc + b3) + (bd, or x / its pool)), rounded once; each lane loads
+// and stores 8 channels (16 bytes) of one row after a quad transpose, so a
+// warp's access covers 64 contiguous bytes of each of 8 rows.
+template <bool kPool, int kMF, int kNW>
+__device__ __forceinline__ void store_out_vec(
+    const float (&acc)[kMF][kNW / 2], const MmaDims& d, const Tile& t,
+    const PassGeom<kMF, kNW>& pg, int m0, int np, int M,
+    const bf16* __restrict__ x, const float* __restrict__ b3,
+    const float* __restrict__ bd, bf16* __restrict__ out) {
+  const int W = d.w, H = d.h, C = d.cout;
+#pragma unroll
+  for (int f = 0; f < kMF; ++f) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = pg.row(m0, f, half);
+      const bool live = m < M;  // quad-uniform; the shuffles run anyway
+      const int q = m / W, col = m - q * W;
+      const int g = q / t.rows, r = t.r0 + (q - g * t.rows);
+      const size_t o = (((size_t)(t.g0 + g) * H + r) * W + col) * C;
+#pragma unroll
+      for (int k = 0; k < kNW / 32; ++k) {
+        float2 e[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          e[jj] = make_float2(acc[f][4 * (4 * k + jj) + 2 * half],
+                              acc[f][4 * (4 * k + jj) + 2 * half + 1]);
+        float v[8];
+        quad_transpose(e, v);
+        const int lq = threadIdx.x & 3;
+        const int n0 = pg.chan(np, 4 * k + lq) - 2 * lq;  // group 4k + lq
+        if (!live || n0 >= C) continue;
+        float res[8];
+        if (d.proj) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) res[i] = bd[n0 + i];
+        } else {
+          uint32_t xv[4];
+          if (kPool) {
+            pool8(x + (size_t)(t.g0 + g) * 4 * H * W * d.cin, 2 * W, d.cin,
+                  r, col, n0, xv);
+          } else {
+            const uint4 u = *reinterpret_cast<const uint4*>(x + o + n0);
+            xv[0] = u.x, xv[1] = u.y, xv[2] = u.z, xv[3] = u.w;
+          }
+          unpack8(xv, res);
+        }
+        uint4 w;
+        uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          wp[i] = pack_bf16x2(
+              fmaxf((v[2 * i] + b3[n0 + 2 * i]) + res[2 * i], 0.f),
+              fmaxf((v[2 * i + 1] + b3[n0 + 2 * i + 1]) + res[2 * i + 1],
+                    0.f));
+        *reinterpret_cast<uint4*>(out + o + n0) = w;
+      }
+    }
+  }
+}
+
+// Phase C's epilogue for any cout and alignment, 2 channels per lane.
+template <bool kPool, int kMF, int kNW>
+__device__ __forceinline__ void store_out(
+    const float (&acc)[kMF][kNW / 2], const MmaDims& d, const Tile& t,
+    const PassGeom<kMF, kNW>& pg, int m0, int np, int M,
+    const bf16* __restrict__ x, const float* __restrict__ b3,
+    const float* __restrict__ bd, bf16* __restrict__ out) {
+  const int W = d.w, H = d.h, C = d.cout;
+#pragma unroll
+  for (int f = 0; f < kMF; ++f) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = pg.row(m0, f, half);
+      if (m >= M) continue;
+      const int q = m / W, col = m - q * W;
+      const int g = q / t.rows, r = t.r0 + (q - g * t.rows);
+      const size_t o = (((size_t)(t.g0 + g) * H + r) * W + col) * C;
+      const bf16* ximg =
+          x + (size_t)(t.g0 + g) * (kPool ? 4 : 1) * H * W * d.cin;
+#pragma unroll
+      for (int j = 0; j < kNW / 8; ++j) {
+        const int n = pg.chan(np, j);
+        if (n >= C) continue;
+        const bool two = n + 1 < C;
+        const float a0 = acc[f][4 * j + 2 * half] + b3[n];
+        const float a1 =
+            two ? acc[f][4 * j + 2 * half + 1] + b3[n + 1] : 0.f;
+        float r0v, r1v;
+        if (d.proj) {
+          r0v = bd[n];
+          r1v = two ? bd[n + 1] : 0.f;
+        } else if (kPool) {
+          r0v = pool3x3s2_at(ximg, 2 * W, d.cin, r, col, n);
+          r1v = two ? pool3x3s2_at(ximg, 2 * W, d.cin, r, col, n + 1) : 0.f;
+        } else {
+          r0v = __bfloat162float(x[o + n]);
+          r1v = two ? __bfloat162float(x[o + n + 1]) : 0.f;
+        }
+        out[o + n] = __float2bfloat16_rn(fmaxf(a0 + r0v, 0.f));
+        if (two) out[o + n + 1] = __float2bfloat16_rn(fmaxf(a1 + r1v, 0.f));
+      }
+    }
+  }
+}
+
+// Kernels 2 (kPool false) and 5 (kPool true, x the pre-pool map): phase A
+// with (kMF1, kNW1) tiles, B likewise, C with (kMF3, kNW3). w1 relaid out
+// as [cmidp/NT1][cinp/64][NT1][64], w2 as [cmidp/NT1][cmidp/64][9][NT1][64],
+// w3 (with wd's rows after w3's on an entry block) as
+// [coutp/NT3][cmidp/64 (+ cinp/64)][NT3][64]; zero-padded.
+template <bool kPool, int kMF1, int kNW1, int kMF3, int kNW3>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+bottleneck_bf16_kernel(const bf16* __restrict__ x,
+                       const bf16* __restrict__ w1,
+                       const float* __restrict__ b1,
+                       const bf16* __restrict__ w2,
+                       const float* __restrict__ b2,
+                       const bf16* __restrict__ w3,
+                       const float* __restrict__ b3,
+                       const float* __restrict__ bd, bf16* __restrict__ out,
+                       MmaDims d) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int W = d.w;
+  const Bufs sb = make_bufs(smem, d);
+  const Tile t = make_tile(d);
+  if (threadIdx.x < kZeroBytes / 16)
+    st_shared_v4(sb.zero + threadIdx.x * 16, 0, 0, 0, 0);
+  int cur[5];
+  stage_cursor(d, t, cur);
+  // At cin <= 64 the one x chunk is staged (pooled, for kernel 5) here,
+  // with no sums live, and stays for phase C's projection.
+  const bool resident = d.cinp == 64;
+  if (resident) {
+    if (kPool && d.vec)
+      stage_pool(d, t, x, sb.x, cur[0], cur[1], cur[2], cur[3], cur[4]);
+    else
+      stage_x<kPool>(d, t, x, 0, sb.x, cur[0], cur[1], cur[2], cur[3],
+                     cur[4]);
+    cp_async_commit();
+  }
+
+  // The passes of all three phases share the weight ring: gs counts their
+  // steps, and each pass loads the next one's first tile (pre) unless that
+  // pass stages x at its first step (conv1 with cin > 64).
+  const int NT1 = 64 * d.wn1, NT3 = 64 * d.wn3;
+  const int n1 = phase_steps<kConv1>(d), n2 = phase_steps<kConv2>(d),
+            n3 = phase_steps<kConv3>(d);
+  int gs = 0;
+  bool pre = false;
+  const int MB = t.gcount * t.rows * W;
+
+  // Phase A: y1 = relu(x w1 + b1) over rows [lo, hi), into y1.
+  {
+    const PassGeom<kMF1, kNW1> pg(d.wn1, d.cmidp);
+    float acc[kMF1][kNW1 / 2];
+    const int RA = t.hi - t.lo;
+    const int MA = t.gcount * RA * W;
+    for (int m0 = 0; m0 < MA; m0 += pg.MT) {
+      for (int np = 0; np < pg.npass; ++np) {
+        const int nn = np + 1 < pg.npass ? np + 1 : 0;
+        const bf16* wn = np + 1 == pg.npass && m0 + pg.MT >= MA
+                             ? w2
+                         : resident ? w1 + (size_t)nn * n1 * 64 * NT1
+                                    : nullptr;
+        mma_pass<kConv1, kMF1, kNW1>(acc, d, t, sb, x, w1, m0, np, MA,
+                                     !resident, cur, gs, pre, wn, NT1);
+        pre = wn != nullptr;
+#pragma unroll
+        for (int f = 0; f < kMF1; ++f) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int m = pg.row(m0, f, half);
+            if (m >= MA) continue;
+            const int q = m / W, col = m - q * W;
+            const int g = q / RA, yr = q - g * RA;
+            const int ypix = (g * t.yrows + yr) * W + col;
+#pragma unroll
+            for (int j = 0; j < kNW1 / 8; ++j) {
+              const int n = pg.chan(np, j);
+              const float v0 =
+                  n < d.cmid ? fmaxf(acc[f][4 * j + 2 * half] + b1[n], 0.f)
+                             : 0.f;
+              const float v1 =
+                  n + 1 < d.cmid
+                      ? fmaxf(acc[f][4 * j + 2 * half + 1] + b1[n + 1], 0.f)
+                      : 0.f;
+              st_shared_b32(sb.y1 + 2 * swz(ypix, d.cmidp, n),
+                            pack_bf16x2(v0, v1));
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // Phase B: y2 = relu(conv3x3(y1) + b2) over the output rows, into y2 at
+  // the pass row.
+  {
+    const PassGeom<kMF1, kNW1> pg(d.wn1, d.cmidp);
+    float acc[kMF1][kNW1 / 2];
+    for (int m0 = 0; m0 < MB; m0 += pg.MT) {
+      for (int np = 0; np < pg.npass; ++np) {
+        const int nn = np + 1 < pg.npass ? np + 1 : 0;
+        const bool last = np + 1 == pg.npass && m0 + pg.MT >= MB;
+        mma_pass<kConv2, kMF1, kNW1>(
+            acc, d, t, sb, x, w2, m0, np, MB, false, cur, gs, pre,
+            last ? w3 : w2 + (size_t)nn * n2 * 64 * NT1, last ? NT3 : NT1);
+        pre = true;
+        if (sb.L.overlay) __syncthreads();  // all of y1 read
+#pragma unroll
+        for (int f = 0; f < kMF1; ++f) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int m = pg.row(m0, f, half);
+            if (m >= MB) continue;
+#pragma unroll
+            for (int j = 0; j < kNW1 / 8; ++j) {
+              const int n = pg.chan(np, j);
+              const float v0 =
+                  n < d.cmid ? fmaxf(acc[f][4 * j + 2 * half] + b2[n], 0.f)
+                             : 0.f;
+              const float v1 =
+                  n + 1 < d.cmid
+                      ? fmaxf(acc[f][4 * j + 2 * half + 1] + b2[n + 1], 0.f)
+                      : 0.f;
+              st_shared_b32(sb.y2 + 2 * swz(m, d.cmidp, n),
+                            pack_bf16x2(v0, v1));
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // Phase C: out = relu((y2 w3 [+ x wd] + b3) + (bd or x)), one rounding.
+  {
+    const PassGeom<kMF3, kNW3> pg(d.wn3, d.coutp);
+    float acc[kMF3][kNW3 / 2];
+    for (int m0 = 0; m0 < MB; m0 += pg.MT) {
+      for (int np = 0; np < pg.npass; ++np) {
+        const int nn = np + 1 < pg.npass ? np + 1 : 0;
+        const bf16* wn = np + 1 == pg.npass && m0 + pg.MT >= MB
+                             ? nullptr
+                             : w3 + (size_t)nn * n3 * 64 * NT3;
+        mma_pass<kConv3, kMF3, kNW3>(acc, d, t, sb, x, w3, m0, np, MB,
+                                     !resident, cur, gs, pre, wn, NT3);
+        pre = wn != nullptr;
+        if (d.vec)
+          store_out_vec<kPool>(acc, d, t, pg, m0, np, MB, x, b3, bd, out);
+        else
+          store_out<kPool>(acc, d, t, pg, m0, np, MB, x, b3, bd, out);
+      }
+    }
+  }
+}
+
+template <bool kPool, int kMF1, int kNW1, int kMF3, int kNW3>
+int bf16_launch(const void* x, const void* w1, const void* b1,
+                const void* w2, const void* b2, const void* w3,
+                const void* b3, const void* bd, void* out, const MmaDims& d,
+                cudaStream_t s) {
+  const int smem = mma_smem(d).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      bottleneck_bf16_kernel<kPool, kMF1, kNW1, kMF3, kNW3>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((d.h + d.tile_rows - 1) / d.tile_rows,
+            (d.n + d.images - 1) / d.images);
+  bottleneck_bf16_kernel<kPool, kMF1, kNW1, kMF3, kNW3>
+      <<<grid, kMmaThreads, smem, s>>>(
+      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (const bf16*)w3, (const float*)b3,
+      (const float*)bd, (bf16*)out, d);
+  return (int)cudaGetLastError();
+}
+
+bool wn_ok(int wn, int chans_p) {
+  return (wn == 1 || wn == 2 || wn == 4) && chans_p % (64 * wn) == 0;
+}
+
+template <bool kPool>
+int bf16_dispatch(const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, const void* w3,
+                  const void* b3, const void* bd, void* out,
+                  const MmaDims& d, cudaStream_t s) {
+  if (d.n == 0 || d.h == 0 || d.w == 0) return (int)cudaGetLastError();
+  const bool ok = d.cinp >= d.cin && d.cmidp >= d.cmid &&
+                  d.coutp >= d.cout && d.cinp % 64 == 0 && d.cin > 0 &&
+                  d.cmid > 0 && d.cout > 0 && wn_ok(d.wn1, d.cmidp) &&
+                  wn_ok(d.wn3, d.coutp) && d.tile_rows >= 1 &&
+                  d.tile_rows <= d.h && d.images >= 1 &&
+                  (d.images == 1 || d.tile_rows == d.h) &&
+                  (d.proj || d.cin == d.cout);
+  // Kernel 5 pools its one x chunk once, before phase A: cin <= 64.
+  if (!ok || (kPool && d.cinp != 64)) return (int)cudaErrorInvalidValue;
+  if (d.wn1 == 4)
+    return d.wn3 == 4
+               ? bf16_launch<kPool, 2, 128, 2, 128>(x, w1, b1, w2, b2, w3, b3,
+                                                    bd, out, d, s)
+               : bf16_launch<kPool, 2, 128, 4, 64>(x, w1, b1, w2, b2, w3, b3,
+                                                   bd, out, d, s);
+  return d.wn3 == 4
+             ? bf16_launch<kPool, 4, 64, 2, 128>(x, w1, b1, w2, b2, w3, b3,
+                                                 bd, out, d, s)
+             : bf16_launch<kPool, 4, 64, 4, 64>(x, w1, b1, w2, b2, w3, b3,
+                                                bd, out, d, s);
 }
 
 }  // namespace
 
-extern "C" long long bottleneck_block_smem_bytes(int bf16, int w, int cmid,
+// f32: the FFMA kernel's shared memory per block.
+extern "C" long long bottleneck_block_smem_bytes(int w, int cmid,
                                                  int tile_rows) {
   Dims d{0, 0, w, 0, cmid, 0, tile_rows};
-  return bf16 ? (long long)smem_bytes<__nv_bfloat16>(d)
-              : (long long)smem_bytes<float>(d);
+  return (long long)smem_bytes(d);
 }
 
-// Kernel 2: one block of the stack. wd / bd may be null (identity
-// residual, requires cin == cout).
+// Kernel 2 in f32: one block of the stack. x [n, h*w, cin], out
+// [n, h*w, cout]; w1 [cin, cmid], w2 [9, cmid, cmid], w3 [cmid, cout], wd
+// [cin, cout]; biases f32. wd / bd may be null (identity residual, requires
+// cin == cout).
 extern "C" int bottleneck_block_launch(const void* x, const void* w1,
                                        const void* b1, const void* w2,
                                        const void* b2, const void* w3,
                                        const void* b3, const void* wd,
                                        const void* bd, void* out, int n, int h,
                                        int w, int cin, int cmid, int cout,
-                                       int tile_rows, int bf16, void* stream) {
-  return launch_dtype<false>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
-                             Dims{n, h, w, cin, cmid, cout, tile_rows}, bf16,
-                             (cudaStream_t)stream);
+                                       int tile_rows, void* stream) {
+  return launch<false>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
+                       Dims{n, h, w, cin, cmid, cout, tile_rows},
+                       (cudaStream_t)stream);
 }
 
-// Kernel 5: the stem max-pool and one block, from the pre-pool map x
+// Kernel 5 in f32: the stem max-pool and one block, from the pre-pool map x
 // [n, 2h, 2w, cin]; h, w and tile_rows are of the pooled map.
 extern "C" int pool_bottleneck_block_launch(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* w3, const void* b3, const void* wd,
     const void* bd, void* out, int n, int h, int w, int cin, int cmid,
-    int cout, int tile_rows, int bf16, void* stream) {
-  return launch_dtype<true>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
-                            Dims{n, h, w, cin, cmid, cout, tile_rows}, bf16,
-                            (cudaStream_t)stream);
+    int cout, int tile_rows, void* stream) {
+  return launch<true>(x, w1, b1, w2, b2, w3, b3, wd, bd, out,
+                      Dims{n, h, w, cin, cmid, cout, tile_rows},
+                      (cudaStream_t)stream);
+}
+
+// bf16: the shared memory of the tensor-core kernel's block.
+extern "C" long long bottleneck_block_bf16_smem_bytes(
+    int h, int w, int cin, int cmid, int cout, int cinp, int cmidp,
+    int coutp, int tile_rows, int images, int wn1, int wn3) {
+  MmaDims d{0, h, w, cin, cmid, cout, cinp, cmidp, coutp,
+            tile_rows, images, wn1, wn3, 0, 0};
+  return (long long)mma_smem(d).total;
+}
+
+// Kernel 2 in bf16: x [n, h*w, cin], out [n, h*w, cout]; weights relaid out
+// as bottleneck_bf16_kernel reads them (ops/bottleneck.py
+// _bottleneck_mma_weights); b1, b2, b3, bd f32; bd null without projection.
+extern "C" int bottleneck_block_bf16_launch(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* w3, const void* b3, const void* bd,
+    void* out, int n, int h, int w, int cin, int cmid, int cout, int cinp,
+    int cmidp, int coutp, int tile_rows, int images, int wn1, int wn3,
+    int proj, int vec, void* stream) {
+  MmaDims d{n, h, w, cin, cmid, cout, cinp, cmidp, coutp,
+            tile_rows, images, wn1, wn3, proj, vec};
+  return bf16_dispatch<false>(x, w1, b1, w2, b2, w3, b3, bd, out, d,
+                              (cudaStream_t)stream);
+}
+
+// Kernel 5 in bf16: as kernel 2, from the pre-pool map x [n, 2h, 2w, cin];
+// h, w, tile_rows are of the pooled map.
+extern "C" int pool_bottleneck_block_bf16_launch(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* w3, const void* b3, const void* bd,
+    void* out, int n, int h, int w, int cin, int cmid, int cout, int cinp,
+    int cmidp, int coutp, int tile_rows, int images, int wn1, int wn3,
+    int proj, int vec, void* stream) {
+  MmaDims d{n, h, w, cin, cmid, cout, cinp, cmidp, coutp,
+            tile_rows, images, wn1, wn3, proj, vec};
+  return bf16_dispatch<true>(x, w1, b1, w2, b2, w3, b3, bd, out, d,
+                             (cudaStream_t)stream);
 }

@@ -1,9 +1,10 @@
 // Tensor-core building blocks for Hopper (sm_90a) kernels of the port:
 // asynchronous global -> shared copies (cp.async), ldmatrix fragment loads
 // and the bf16 wgmma.mma_async products (A from registers, B from shared
-// memory through a descriptor) with f32 sums. Kernel 4 (basic_stack.cu) is
-// built on them; they carry no kernel-specific layout, so the other fused
-// stacks can move onto them.
+// memory through a descriptor) with f32 sums, and the XOR swizzle of the
+// activation tiles A is read from. Kernels 4 (basic_stack.cu) and 2 and 5
+// (bottleneck_stack.cu) are built on them; they carry no kernel-specific
+// layout.
 //
 // Fragment layouts (PTX ISA, "wgmma .m64nNk16", register A): warp w of the
 // warpgroup holds rows 16w..16w+15 of the 64-row A tile, lane l rows
@@ -149,6 +150,30 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// One m64 tile of kNW (64 or 128) channels: wgmma_m64n64 / _m64n128.
+template <int kNW>
+__device__ __forceinline__ void wgmma_tile(float (&d)[kNW / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_tile<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  wgmma_m64n64(d, a, desc);
+}
+template <>
+__device__ __forceinline__ void wgmma_tile<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  wgmma_m64n128(d, a, desc);
+}
+
+// Offset in elements of channel n of pixel pix in a swizzled buffer of
+// pitch cp: the 16-byte line (n/8)%8 is XORed with pix%8.
+__device__ __forceinline__ int swz(int pix, int cp, int n) {
+  return pix * cp + (n & ~63) + ((((n >> 3) & 7) ^ (pix & 7)) << 3) + (n & 7);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

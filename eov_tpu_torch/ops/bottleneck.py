@@ -11,9 +11,11 @@ Counterpart of ``eov_tpu/ops/pallas_bottleneck.py``, with its grouping:
   per block.
 * ``fused_pool_bottleneck_stack`` (kernel 5): the stem's 3x3/s2 max-pool
   and that stack, from the pre-pool map ``[N, 2H, 2W, C]``. The first block
-  goes through kernel 2's code with the pool in its x loader (same file),
-  the others through kernel 2; the result equals ``maxpool_3x3_s2_nonneg``
-  then ``fused_bottleneck_stack`` bit for bit.
+  goes through kernel 2's code with the pool building its staged input
+  (same file), the others through kernel 2; the result equals
+  ``maxpool_3x3_s2_nonneg`` then ``fused_bottleneck_stack`` in value.
+  Both run bf16 on the tensor cores (``wgmma``, tiles planned by
+  ``bottleneck_tile_plan``) and f32 on FFMA.
 * ``pack_basic_params`` / ``fused_basic_stack`` (kernel 4,
   ``csrc/basic_stack.cu``): a stack of stride-1 basic blocks (resnet18/34)
   with C constant, one fused block per launch; bf16 on the tensor cores
@@ -32,6 +34,7 @@ counts its kernel launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping, Sequence
 
 import torch
@@ -45,7 +48,8 @@ __all__ = ["pack_bottleneck_params", "fused_bottleneck_stack",
            "stack_flops_per_img", "fused_pool_bottleneck_stack",
            "pool_bottleneck_stack_plain", "pool_bottleneck_stack_cuda",
            "pack_basic_params", "fused_basic_stack", "basic_stack_plain",
-           "basic_stack_cuda", "basic_tile_rows", "basic_tile_plan", "bf16_ulp"]
+           "basic_stack_cuda", "basic_tile_rows", "basic_tile_plan",
+           "bottleneck_tile_plan", "bf16_ulp"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _WEIGHTS = ("w1", "w2", "w3", "wd")
@@ -154,11 +158,17 @@ def _conv3x3(x: torch.Tensor, w9: torch.Tensor, h: int,
     return acc
 
 
-def bottleneck_stack_plain(x: torch.Tensor, blocks, *, h: int,
-                           w: int) -> torch.Tensor:
-    """Plain PyTorch version of the stack (the kernel's oracle)."""
+def bottleneck_stack_plain(x: torch.Tensor, blocks, *, h: int, w: int,
+                           stream_max: bool = False):
+    """Plain PyTorch version of the stack (the kernel's oracle).
+
+    ``stream_max=True`` also returns, broadcast over the output's channels,
+    the magnitude the stream carries at each pixel: the largest |x| over
+    the pixel's channels over the stack's input and every block's output
+    (``basic_stack_plain``'s measure, for ``bf16_ulp``)."""
     _check(x, blocks, h, w)
     dt = x.dtype
+    top = x.float().abs().amax(dim=-1, keepdim=True)
     for b in blocks:
         xf = x.float()
         y1 = torch.relu(xf @ b["w1"].float() + _bias(b["b1"])).to(dt)
@@ -166,7 +176,10 @@ def bottleneck_stack_plain(x: torch.Tensor, blocks, *, h: int,
         y3 = y2.float() @ b["w3"].float() + _bias(b["b3"])
         res = xf @ b["wd"].float() + _bias(b["bd"]) if "wd" in b else xf
         x = torch.relu(y3 + res).to(dt)
-    return x
+        if stream_max:
+            top = torch.maximum(top, x.float().abs().amax(dim=-1,
+                                                          keepdim=True))
+    return (x, top.expand(x.shape)) if stream_max else x
 
 
 def _lib():
@@ -175,19 +188,135 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.bottleneck_block_launch,
                    lib.pool_bottleneck_block_launch):
-            fn.argtypes = [p] * 10 + [i] * 8 + [p]
+            fn.argtypes = [p] * 10 + [i] * 7 + [p]
             fn.restype = ctypes.c_int
-        lib.bottleneck_block_smem_bytes.argtypes = [i, i, i, i]
-        lib.bottleneck_block_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.bottleneck_block_bf16_launch,
+                   lib.pool_bottleneck_block_bf16_launch):
+            fn.argtypes = [p] * 9 + [i] * 15 + [p]
+            fn.restype = ctypes.c_int
+        lib.bottleneck_block_smem_bytes.argtypes = [i] * 3
+        lib.bottleneck_block_bf16_smem_bytes.argtypes = [i] * 12
+        for fn in (lib.bottleneck_block_smem_bytes,
+                   lib.bottleneck_block_bf16_smem_bytes):
+            fn.restype = ctypes.c_longlong
     return lib
 
 
 def tile_rows(h: int, w: int) -> int:
-    """Output rows per thread block: as many as fit a 128-pixel tile."""
+    """Output rows per thread block of the f32 kernel: as many as fit a
+    128-pixel tile."""
     if w > 128:
         raise ValueError(f"map width {w} > 128 is not supported by the "
                          "bottleneck kernel's 128-pixel tiles")
     return max(1, min(h, 128 // w))
+
+
+def _bottleneck_smem(h: int, w: int, cinp: int, cmidp: int, tr: int, g: int,
+                     wn1: int, wn3: int) -> int:
+    """Shared memory of a bf16 kernel-2 block (``mma_smem`` in
+    bottleneck_stack.cu): the weight ring, one or two staged 64-channel x
+    chunks of the block's rows and halo, y1 over them at all of cmid's
+    channels, and y2 unless it takes y1's place (phase B one M pass and one
+    N pass)."""
+    yrows = min(tr + 2, h)
+    ring = 64 * 64 * 2 * max(wn1, wn3)
+    xbuf = g * yrows * w * 128
+    y1 = g * yrows * w * cmidp * 2
+    overlay = cmidp == 64 * wn1 and g * tr * w <= 512 // wn1
+    y2 = 0 if overlay else g * tr * w * cmidp * 2
+    return _MMA_ZERO + _MMA_STAGES * ring + (2 if cinp > 64 else 1) * xbuf \
+        + y1 + y2
+
+
+def bottleneck_tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
+                         n: int = 1) -> dict:
+    """The bf16 kernel's tiling of one block over an [n, h*w, cin] map.
+
+    Channels are padded to multiples of 64 (``cinp``, ``cmidp``,
+    ``coutp``). conv1 and conv2 run in N passes of ``64 wn1`` channels and
+    M passes of ``m_tile = 512 / wn1`` pixels, conv3 in passes of ``64 wn3``
+    and ``m_tile_out = 512 / wn3`` (the block's 8 warps hold 64 x 64
+    products each). Of the tile heights (``tile_rows``; with the whole map,
+    ``images`` maps per block, at most ``n``) and pass widths whose block
+    fits the shared memory, the plan takes the one with the fewest K steps
+    (one 64-deep product of a whole M x N pass and one barrier) per image,
+    then the fewest blocks: a step costs the same however few of its rows
+    are in the image. Returns those, ``overlay`` (y2 in y1's place),
+    ``smem``, ``steps`` per image and the launch ``grid`` (row tiles, image
+    groups). The search is cached per shape: it takes about a millisecond
+    of host time, more than a small launch's device time."""
+    return dict(_tile_plan(h, w, cin, cmid, cout, n))
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
+               n: int) -> dict:
+    """``bottleneck_tile_plan``, searched once per shape."""
+    cinp, cmidp, coutp = (-(-c // 64) * 64 for c in (cin, cmid, cout))
+    kin, kmid, kout = cinp // 64, cmidp // 64, coutp // 64
+    kc = kmid + (kin if cin != cout else 0)  # conv3's K chunks
+
+    def steps(tr, g, wn1, wn3):
+        mt1, mt3 = 512 // wn1, 512 // wn3
+        total = 0
+        for r0 in range(0, h, tr):
+            rows = min(tr, h - r0)
+            ra = min(r0 + rows + 1, h) - max(r0 - 1, 0)
+            mb = g * rows * w
+            total += (-(-g * ra * w // mt1) * (kmid // wn1) * kin
+                      + -(-mb // mt1) * (kmid // wn1) * kmid * 9
+                      + -(-mb // mt3) * (kout // wn3) * kc)
+        return total
+
+    best = None
+    for wn1 in (v for v in (1, 2, 4) if kmid % v == 0):
+        for wn3 in (v for v in (1, 2, 4) if kout % v == 0):
+            for tr in range(1, h + 1):
+                for g in range(1, (n if tr == h else 1) + 1):
+                    smem = _bottleneck_smem(h, w, cinp, cmidp, tr, g, wn1,
+                                            wn3)
+                    if smem > _MAX_SMEM:
+                        break
+                    key = (steps(tr, g, wn1, wn3) / g, -tr * g, smem)
+                    if best is None or key < best[0]:
+                        best = (key, tr, g, wn1, wn3)
+    if best is None:
+        least = _bottleneck_smem(h, w, cinp, cmidp, 1, 1, 1, 1)
+        raise ValueError(f"bottleneck tile needs {least} B of shared memory "
+                         f"(> {_MAX_SMEM}) at w={w}, cin={cin}, cmid={cmid}, "
+                         f"one row")
+    (per_img, _, smem), tr, g, wn1, wn3 = best
+    return {"tile_rows": tr, "images": g, "cinp": cinp, "cmidp": cmidp,
+            "coutp": coutp, "wn1": wn1, "wn3": wn3, "m_tile": 512 // wn1,
+            "m_tile_out": 512 // wn3,
+            "overlay": cmidp == 64 * wn1 and g * tr * w <= 512 // wn1,
+            "smem": smem, "steps": per_img,
+            "grid": (-(-h // tr), -(-n // g))}
+
+
+def _kmajor_tiles(wk: torch.Tensor, nt: int) -> torch.Tensor:
+    """[K, N] (multiples of 64 and nt) -> [N/nt, K/64, nt, 64]: each (N
+    pass, 64-deep K chunk) tile contiguous and K-major."""
+    k, n = wk.shape
+    return wk.reshape(k // 64, 64, n // nt, nt).permute(2, 0, 3, 1) \
+        .contiguous()
+
+
+def _bottleneck_mma_weights(b, plan) -> tuple:
+    """A packed block's weights as the bf16 kernel's K loops read them,
+    zero-padded: w1 [cmidp/NT1][cinp/64][NT1][64], w2 [cmidp/NT1][cmidp/64]
+    [9][NT1][64], and w3 with (on an entry block) wd's rows after its own,
+    [coutp/NT3][cmidp/64 (+ cinp/64)][NT3][64]."""
+    cin, cmid = b["w1"].shape
+    cout = b["w3"].shape[1]
+    cinp, cmidp, coutp = plan["cinp"], plan["cmidp"], plan["coutp"]
+    nt1, nt3 = 64 * plan["wn1"], 64 * plan["wn3"]
+    w1 = F.pad(b["w1"], (0, cmidp - cmid, 0, cinp - cin))
+    w3 = F.pad(b["w3"], (0, coutp - cout, 0, cmidp - cmid))
+    if "wd" in b:
+        w3 = torch.cat([w3, F.pad(b["wd"], (0, coutp - cout, 0, cinp - cin))])
+    return (_kmajor_tiles(w1, nt1), _mma_weights(b["w2"], cmidp, nt1),
+            _kmajor_tiles(w3, nt3))
 
 
 def _check_cuda(x: torch.Tensor, blocks, name: str) -> None:
@@ -206,25 +335,55 @@ def _check_cuda(x: torch.Tensor, blocks, name: str) -> None:
                                  f"tensor on {x.device}")
 
 
-def _launch_block(launcher, x, b, out, *, h: int, w: int,
-                  bf16: int) -> None:
-    """One bottleneck block through kernel 2 (or kernel 5's pool entry)."""
+def _launch_block(x, b, out, *, h: int, w: int, pool: bool) -> None:
+    """One bottleneck block through kernel 2 (or kernel 5's pool entry):
+    bf16 on the tensor cores, f32 on the FFMA kernel."""
+    lib = _lib()
     cin, cmid = b["w1"].shape
     cout = b["w3"].shape[1]
+    proj = "wd" in b
+    n = x.shape[0]
+    stream = _cuda.stream_ptr(x.device)
+    if x.dtype == torch.bfloat16:
+        if pool and cin > 64:
+            raise ValueError(f"kernel 5 in bf16 pools one staged chunk of at "
+                             f"most 64 channels (the stem's), got {cin}; run "
+                             f"maxpool_3x3_s2_nonneg then "
+                             f"fused_bottleneck_stack")
+        plan = bottleneck_tile_plan(h, w, cin, cmid, cout, n)
+        dims = (n, h, w, cin, cmid, cout, plan["cinp"], plan["cmidp"],
+                plan["coutp"], plan["tile_rows"], plan["images"],
+                plan["wn1"], plan["wn3"])
+        smem = lib.bottleneck_block_bf16_smem_bytes(*dims[1:])
+        if smem != plan["smem"]:
+            raise RuntimeError(f"bottleneck plan and kernel disagree on "
+                               f"shared memory: {plan['smem']} vs {smem}")
+        # Held until the launch is enqueued: a relaid-out copy freed before
+        # that could hand its memory to the next allocation.
+        w1t, w2t, w3t = _bottleneck_mma_weights(b, plan)
+        vec = int(cin % 8 == 0 and cout % 8 == 0 and x.data_ptr() % 16 == 0)
+        fn = lib.pool_bottleneck_block_bf16_launch if pool else \
+            lib.bottleneck_block_bf16_launch
+        code = fn(_cuda.ptr(x), _cuda.ptr(w1t), _cuda.ptr(b["b1"]),
+                  _cuda.ptr(w2t), _cuda.ptr(b["b2"]), _cuda.ptr(w3t),
+                  _cuda.ptr(b["b3"]), _cuda.ptr(b["bd"]) if proj else None,
+                  _cuda.ptr(out), *dims, int(proj), vec, stream)
+        _cuda.check(code, "bottleneck_stack")
+        return
     tr = tile_rows(h, w)
-    smem = _lib().bottleneck_block_smem_bytes(bf16, w, cmid, tr)
+    smem = lib.bottleneck_block_smem_bytes(w, cmid, tr)
     if smem > _MAX_SMEM:
         raise ValueError(f"bottleneck tile needs {smem} B of shared "
                          f"memory (> {_MAX_SMEM}) at w={w}, cmid={cmid}")
-    proj = "wd" in b
-    code = launcher(
+    fn = lib.pool_bottleneck_block_launch if pool else \
+        lib.bottleneck_block_launch
+    code = fn(
         _cuda.ptr(x), _cuda.ptr(b["w1"]), _cuda.ptr(b["b1"]),
         _cuda.ptr(b["w2"]), _cuda.ptr(b["b2"]), _cuda.ptr(b["w3"]),
         _cuda.ptr(b["b3"]),
         _cuda.ptr(b["wd"]) if proj else None,
         _cuda.ptr(b["bd"]) if proj else None,
-        _cuda.ptr(out), x.shape[0], h, w, cin, cmid, cout, tr, bf16,
-        _cuda.stream_ptr(x.device),
+        _cuda.ptr(out), n, h, w, cin, cmid, cout, tr, stream,
     )
     _cuda.check(code, "bottleneck_stack")
 
@@ -238,12 +397,10 @@ def bottleneck_stack_cuda(x: torch.Tensor, blocks, *, h: int,
     """
     _check(x, blocks, h, w)
     _check_cuda(x, blocks, "bottleneck_stack_cuda")
-    launcher = _lib().bottleneck_block_launch
-    bf16 = int(x.dtype == torch.bfloat16)
     for b in blocks:
         out = torch.empty(x.shape[0], h * w, b["w3"].shape[1],
                           dtype=x.dtype, device=x.device)
-        _launch_block(launcher, x, b, out, h=h, w=w, bf16=bf16)
+        _launch_block(x, b, out, h=h, w=w, pool=False)
         fused_bottleneck_stack.launches += 1
         x = out
     return x
@@ -288,16 +445,16 @@ def pool_bottleneck_stack_plain(x: torch.Tensor, blocks) -> torch.Tensor:
 
 
 def pool_bottleneck_stack_cuda(x: torch.Tensor, blocks) -> torch.Tensor:
-    """Kernel 5: the first block reads the pooled map through the pool in
-    its x loader (one launch), the others run on kernel 2."""
+    """Kernel 5: the first block builds its pooled input itself (one
+    launch; in bf16 at most 64 input channels, the stem's), the others run
+    on kernel 2."""
     h, w = _pooled_hw(x)
     _check_blocks(blocks, x.shape[3])
     _check_cuda(x, blocks, "pool_bottleneck_stack_cuda")
     b = blocks[0]
     out = torch.empty(x.shape[0], h * w, b["w3"].shape[1], dtype=x.dtype,
                       device=x.device)
-    _launch_block(_lib().pool_bottleneck_block_launch, x, b, out, h=h, w=w,
-                  bf16=int(x.dtype == torch.bfloat16))
+    _launch_block(x, b, out, h=h, w=w, pool=True)
     fused_pool_bottleneck_stack.launches += 1
     if len(blocks) > 1:
         out = bottleneck_stack_cuda(out, blocks[1:], h=h, w=w)

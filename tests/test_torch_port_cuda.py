@@ -339,6 +339,96 @@ def test_maxpool_kernel_equal(dev, shape, dtype):
     assert torch.equal(got, lib)
 
 
+# ResNet-50's bottleneck stacks on kernel 2 at 224^2: stage 1 (entry block
+# with projection) and the stride-1 tails of stages 2-4, as (h = w, cin,
+# cmid, cout, blocks).
+RESNET50_STACKS = [(56, 64, 64, 256, 3), (28, 512, 128, 512, 3),
+                   (14, 1024, 256, 1024, 5), (7, 2048, 512, 2048, 2)]
+
+
+def _lecun_blocks(rng, cin, cmid, cout, n_blocks, dev):
+    """bf16 bottleneck blocks at the LeCun scale (1 / sqrt(fan in)); a
+    projection on the first block when cin != cout."""
+    def mk(shape, fan=None):
+        a = rng.standard_normal(shape).astype(np.float32)
+        a = torch.from_numpy(a / fan ** 0.5 if fan else a * 0.1).to(dev)
+        return a.to(torch.bfloat16) if fan else a
+
+    blocks = []
+    for i in range(n_blocks):
+        ci = cin if i == 0 else cout
+        b = {"w1": mk((ci, cmid), ci), "b1": mk((cmid,)),
+             "w2": mk((9, cmid, cmid), 9 * cmid), "b2": mk((cmid,)),
+             "w3": mk((cmid, cout), cmid), "b3": mk((cout,))}
+        if ci != cout:
+            b["wd"], b["bd"] = mk((ci, cout), ci), mk((cout,))
+        blocks.append(b)
+    return blocks
+
+
+def _check_bottleneck_per_block(x, blocks, h, w):
+    """Kernel 2 in bf16: each block, fed the plain version's stream, within
+    2 bf16 ulps of the magnitude the stream carries at the element's pixel
+    (``bottleneck_stack_plain(stream_max=True)``); the whole stack at
+    per-image cosine >= 0.9999; one launch per block."""
+    xs = x
+    for b in blocks:
+        got = bottleneck.bottleneck_stack_cuda(xs, [b], h=h, w=w)
+        want, top = bottleneck.bottleneck_stack_plain(xs, [b], h=h, w=w,
+                                                      stream_max=True)
+        ulps = float(((got.float() - want.float()).abs()
+                      / bottleneck.bf16_ulp(top)).max())
+        assert ulps <= 2, ulps
+        xs = want
+    before = bottleneck.fused_bottleneck_stack.launches
+    got = bottleneck.fused_bottleneck_stack(x, blocks, h=h, w=w)
+    assert bottleneck.fused_bottleneck_stack.launches == before + len(blocks)
+    want = bottleneck.bottleneck_stack_plain(x, blocks, h=h, w=w)
+    cos = float(F.cosine_similarity(got.float().flatten(1),
+                                    want.float().flatten(1), dim=1).min())
+    assert cos >= 0.9999, cos
+
+
+@pytest.mark.parametrize("hw,cin,cmid,cout,nb", RESNET50_STACKS)
+def test_bottleneck_stack_bf16_resnet50_stacks(dev, hw, cin, cmid, cout,
+                                               nb):
+    """The bf16 tensor-core kernel at ResNet-50's four stack shapes, 2
+    images, LeCun-scale weights (``_check_bottleneck_per_block``)."""
+    rng = np.random.default_rng(hw * cmid + nb)
+    blocks = _lecun_blocks(rng, cin, cmid, cout, nb, dev)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (2, hw * hw, cin)).astype(np.float32))).to(dev, torch.bfloat16)
+    _check_bottleneck_per_block(x, blocks, hw, hw)
+
+
+@pytest.mark.parametrize("h,w,cin,cmid,cout,n", [
+    (14, 14, 40, 72, 136, 3), (5, 7, 24, 16, 40, 3), (6, 10, 24, 16, 40, 9),
+    (9, 5, 136, 72, 136, 4), (56, 3, 64, 64, 256, 2),
+    (6, 10, 20, 12, 36, 3)])
+def test_bottleneck_stack_bf16_ragged(dev, h, w, cin, cmid, cout, n):
+    """Channel counts padded to 64 (24, 16, 40, 72, 136), widths that are
+    no multiple of 8, blocks of several whole images with n no multiple of
+    them, a thin map of many tiles; channel counts no multiple of 8 (20,
+    12, 36) take the scalar loads and stores."""
+    rng = np.random.default_rng(h * w + cin + n)
+    blocks = _lecun_blocks(rng, cin, cmid, cout, 2, dev)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (n, h * w, cin)).astype(np.float32))).to(dev, torch.bfloat16)
+    _check_bottleneck_per_block(x, blocks, h, w)
+
+
+def test_bottleneck_bf16_smem_matches_plan(dev):
+    """The kernel's shared-memory layout is the planner's, at every block
+    shape of ResNet-50's stacks."""
+    lib = bottleneck._lib()
+    for hw, cin, cmid, cout, _ in RESNET50_STACKS:
+        for ci in {cin, cout}:
+            p = bottleneck.bottleneck_tile_plan(hw, hw, ci, cmid, cout, 256)
+            assert lib.bottleneck_block_bf16_smem_bytes(
+                hw, hw, ci, cmid, cout, p["cinp"], p["cmidp"], p["coutp"],
+                p["tile_rows"], p["images"], p["wn1"], p["wn3"]) == p["smem"]
+
+
 def _basic_blocks(rng, c, n_blocks, dev, dtype):
     def mk(shape, is_w=True):
         a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -457,6 +547,33 @@ def test_pool_stack_kernel(dev, h2, w2, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("cin,cout", [(20, 36), (24, 24)])
+def test_pool_stack_bf16_scalar_and_identity(dev, cin, cout):
+    """Kernel 5 in bf16 with channel counts no multiple of 8 (the scalar
+    pool and stores) and with an identity first block (its residual is
+    the pool), equal to kernel 6 then kernel 2."""
+    rng = np.random.default_rng(cin + cout)
+    blocks = _lecun_blocks(rng, cin, 16, cout, 2, dev)
+    x = torch.relu(torch.from_numpy(rng.standard_normal(
+        (2, 10, 14, cin)).astype(np.float32))).to(dev, torch.bfloat16)
+    got = bottleneck.fused_pool_bottleneck_stack(x, blocks)
+    ref = bottleneck.bottleneck_stack_cuda(
+        pool.maxpool_cuda(x).reshape(2, 35, cin), blocks, h=5, w=7)
+    assert torch.equal(got, ref)
+
+
+def test_pool_stack_bf16_refuses_wide_input(dev):
+    """Kernel 5 in bf16 pools one staged chunk of at most 64 channels (the
+    stem's); a wider pre-pool map is refused before any launch."""
+    rng = np.random.default_rng(7)
+    blocks = _blocks(rng, 72, 16, 40, 1, dev, torch.bfloat16)
+    x = torch.zeros(1, 10, 12, 72, device=dev, dtype=torch.bfloat16)
+    before = bottleneck.fused_pool_bottleneck_stack.launches
+    with pytest.raises(ValueError, match="64 channels"):
+        bottleneck.fused_pool_bottleneck_stack(x, blocks)
+    assert bottleneck.fused_pool_bottleneck_stack.launches == before
 
 
 def test_basic_pool_forward_gpu_matches_cpu(dev):
