@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
    repeats; the microsecond kernels replayed from a CUDA graph). Kernels 8
    and 9 (the train stack's forward and backward) are held at both of
    their shapes (ResNet-50 stage 1 and the stage-2 tail, 96 images) in
-   bf16, and in f32 on 16 images; kernel 7 (the int8 stage-1 stack) bit
+   bf16, and in f32 on 16 images, and kernel 9's passes are timed one by
+   one beside each pass's memory floor; kernel 7 (the int8 stage-1 stack) bit
    for bit at 256 images in bf16 and 16 in f32;
 4. run the extraction main path: a synthetic dataset stored at 256x320 (so
    the crop kernel runs), full-width ResNet-50 with seeded random weights,
@@ -983,6 +984,155 @@ def _rel_err(got, want) -> tuple[float, float, float]:
             float((g - p).norm() / p.norm().clamp_min(1e-30)), cos)
 
 
+# Kernel 9's passes in bf16, named by the launcher each calls: the
+# recompute (the forward's launches before the first bwd_pre), bwd_pre,
+# the input gradient and the weight gradients, which the wrapper launches
+# in the order w3, w2, w1 (, wd) after each bwd_pre.
+_PASS_NAMES = {"train_block_fwd_bf16_launch": "recompute",
+               "train_bwd_pre_launch": "pre",
+               "train_bwd_dgrad_bf16_launch": "dgrad",
+               "train_wgrad_bf16_launch": "wgrad"}
+
+
+def train_pass_ms(bt, run) -> dict:
+    """Device ms of each pass of kernel 9 in one call of ``run``: CUDA
+    events around each launcher of the train kernels' library (patched on
+    the loaded library for the call), summed by pass over the blocks."""
+    lib = bt._lib()
+    marks, saved = [], {}
+    for name in _PASS_NAMES:
+        fn = getattr(lib, name)
+
+        def call(*args, _fn=fn, _name=name):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            code = _fn(*args)
+            b.record()
+            marks.append((_name, a, b))
+            return code
+
+        call.argtypes = fn.argtypes
+        saved[name] = fn
+        setattr(lib, name, call)
+    try:
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+    torch.cuda.synchronize()
+    out, k = {}, 0
+    for name, a, b in marks:
+        key = _PASS_NAMES[name]
+        if key == "pre":
+            k = 0
+        elif key == "wgrad":
+            key, k = "wgrad_" + ("w3", "w2", "w1", "wd")[k], k + 1
+        out[key] = out.get(key, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def _train_pass_bytes(bt, n, h, w, blocks) -> dict:
+    """Device-memory floor of each pass of kernels 8 and 9 in bf16 (each
+    launch's inputs read once, its outputs written once), summed over the
+    blocks: the forward (f32 x in, f32 out); the recompute (the same, and
+    y1, y2 saved); bwd_pre (out and d_out in, g3, gd or d_pre out); the
+    input gradient (g3, gd, y1, y2, d_pre in; g2, g1, dx out); each weight
+    gradient (A, G in; the slots' partials out, then in again, and dW
+    out)."""
+    p, f4, b2 = n * h * w, 4, 2
+    fwd = rec = pre = dgrad = 0
+    wgrad = {}
+    for b in blocks:
+        cin, cmid = b["w1"].shape
+        cout = b["w3"].shape[1]
+        proj = "wd" in b
+        fwd += p * (cin + cout) * f4
+        rec += p * (cin + cout) * f4 + 2 * p * cmid * b2
+        pre += p * cout * (2 * f4 + (2 * b2 if proj else b2 + f4))
+        dgrad += (p * cout * b2 * (2 if proj else 1) + 2 * p * cmid * b2
+                  + (0 if proj else p * cout * f4) + 2 * p * cmid * b2
+                  + p * cin * f4)
+        jobs = [("w3", cmid, cout, 1, b2), ("w2", cmid, cmid, 9, b2),
+                ("w1", cin, cmid, 1, f4)] + (
+            [("wd", cin, cout, 1, f4)] if proj else [])
+        for name, ka, ng, taps, asz in jobs:
+            part = bt.train_wgrad_plan(h, w, ka, ng, n, taps)["part"]
+            wgrad[f"wgrad_{name}"] = wgrad.get(f"wgrad_{name}", 0) + (
+                p * ka * asz + p * ng * b2 + 2 * part * f4
+                + taps * ka * ng * f4)
+    return {"forward": fwd, "recompute": rec, "pre": pre, "dgrad": dgrad,
+            **wgrad}
+
+
+def _train_passes(bt, x, blocks, dy, h, w) -> dict:
+    """Kernel 9's passes in bf16 (median of three runs) beside each pass's
+    device-memory floor."""
+    n = x.shape[0]
+    runs = [train_pass_ms(bt, lambda: bt.train_stack_backward_cuda(
+        x, blocks, dy, h=h, w=w, dtype=torch.bfloat16)) for _ in range(3)]
+    floors = _train_pass_bytes(bt, n, h, w, blocks)
+    return {k: {"ms": statistics.median(r[k] for r in runs),
+                "floor_ms": floors[k] / HBM_BYTES_PER_S * 1e3}
+            for k in runs[0]}
+
+
+def _reorder_rel_l2(bt, x, blocks, dy, h, w, dx_p, dws_p) -> float:
+    """The plain backward (bf16) against itself with each block's mid
+    channels permuted: the same function with its sums in another order.
+    The largest relative L2 error over dx and every dW is the noise that
+    any reordering of the f32 sums brings to kernel 9's whole-tensor bars
+    at these inputs (a rounding flip moves a ReLU mask downstream)."""
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    perms = [torch.randperm(b["w1"].shape[1], generator=gen, device=x.device)
+             for b in blocks]
+    permuted = []
+    for b, pm in zip(blocks, perms):
+        q = dict(b, w1=b["w1"][:, pm], w2=b["w2"][:, pm][:, :, pm],
+                 w3=b["w3"][pm])
+        for k in ("s1", "b1", "s2", "b2"):
+            q[k] = b[k][pm]
+        permuted.append(q)
+    dx, dws = bt.train_stack_backward_plain(x, permuted, dy, h=h, w=w)
+    worst = _rel_err(dx, dx_p)[1]
+    for d, p, pm in zip(dws, dws_p, perms):
+        inv = torch.argsort(pm)
+        back = dict(d, w1=d["w1"][:, inv], w2=d["w2"][:, inv][:, :, inv],
+                    w3=d["w3"][inv])
+        worst = max([worst] + [_rel_err(back[k], p[k])[1] for k in p])
+    return worst
+
+
+def _flips_vs_f64(bt, x, b, h, w) -> dict:
+    """Kernel 8's first block in bf16 at the check's inputs: the elements
+    of y1, y2 and out whose rounding differs from the same chain with
+    float64 sums, beside the plain version's count (its f32 sums)."""
+    dt = torch.bfloat16
+
+    def mm(a, wt):
+        return a.double() @ wt.to(dt).double()
+
+    def affine(c, k):
+        return c.float().to(dt).float() * b["s" + k] + b["b" + k]
+
+    xd = x.to(dt)
+    y1 = torch.relu(affine(mm(xd, b["w1"]), "1")).to(dt)
+    c2 = sum(mm(tap, b["w2"][t])
+             for t, tap in enumerate(bt._taps(y1, h, w, +1)))
+    y2 = torch.relu(affine(c2, "2")).to(dt)
+    r = affine(mm(xd, b["wd"]), "d") if "wd" in b else x
+    out = torch.relu(affine(mm(y2, b["w3"]), "3") + r)
+    pb = bt._prep_cuda(x, [b], dt)[0]
+    got = (torch.empty_like(out), torch.empty_like(y1), torch.empty_like(y2))
+    bt._fwd_block_cuda(bt._lib(), x, pb, *got, h, w, True,
+                       bt._cuda.stream_ptr(x.device))
+    plain = bt._block_forward(x, b, h, w, dt)
+    want = (out, y1, y2)
+    count = lambda ts: [int((t != f).sum()) for t, f in zip(ts, want)]  # noqa: E731
+    return {"out_y1_y2": count(got), "plain_out_y1_y2": count(plain),
+            "n": [t.numel() for t in want]}
+
+
 def check_train_stack(dev):
     """Kernels 8 and 9 against their plain versions (bf16 at 96 images, f32
     at 16) at both shapes; times, bounds and the cuDNN yardsticks."""
@@ -1029,6 +1179,11 @@ def check_train_stack(dev):
                 worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
                 worst_cos = min(worst_cos, c)
             key = "bf16" if dt == torch.bfloat16 else "f32"
+            if dt == torch.bfloat16:
+                bwd["shapes"].setdefault(name, {})["reorder_rel_l2_bf16"] = (
+                    _reorder_rel_l2(bt, xs, blocks, dys, h, w, dx_p, dws_p))
+                fwd["shapes"].setdefault(name, {})["bf16_flips_vs_f64"] = (
+                    _flips_vs_f64(bt, xs, blocks[0], h, w))
             fwd["shapes"].setdefault(name, {})[f"max_abs_err_{key}"] = err
             bwd["shapes"].setdefault(name, {}).update({
                 f"max_abs_err_{key}": worst_abs,
@@ -1040,6 +1195,16 @@ def check_train_stack(dev):
         wbytes = sum(v.numel() * 4 for b in blocks for v in b.values())
         io_f = n * p * (shp["cin"] + shp["cout"]) * 4 + wbytes
         io_b = n * p * (2 * shp["cin"] + shp["cout"]) * 4 + 2 * wbytes
+        # Kernel 9's passes (CUDA events around each; the median of three
+        # runs) beside each pass's device-memory floor.
+        passes = _train_passes(bt, x, blocks, dy, h, w)
+        bwd["shapes"][name]["passes"] = passes
+        floors = _train_pass_bytes(bt, n, h, w, blocks)
+        fwd["shapes"][name]["block_io_floor_ms"] = (
+            floors["forward"] / HBM_BYTES_PER_S * 1e3)
+        bwd["shapes"][name]["block_io_floor_ms"] = sum(
+            v["floor_ms"] for v in passes.values())
+        print(f"kernel 9 passes {name}: {passes}", flush=True)
         xr = x.clone().requires_grad_()
         wr = [b[k].clone().requires_grad_() for b in blocks for k in b
               if k[0] == "w"]
@@ -1076,7 +1241,12 @@ def check_train_stack(dev):
                 row[k] += t[k]
     fwd["max_abs_err"] = fwd["shapes"]["stage1"]["max_abs_err_bf16"]
     bwd["max_abs_err"] = bwd["shapes"]["stage1"]["max_abs_err_bf16"]
-    common = {"route": "cuda", "source": "eov_tpu_torch/csrc/bottleneck_train.cu"}
+    common = {"route": "cuda",
+              "source": "eov_tpu_torch/csrc/bottleneck_train.cu",
+              "instruction": "bf16: wgmma.mma_async m64n64k16 / m64n128k16 "
+                             "(kernel 2's three-phase block; the weight "
+                             "gradients A by ldmatrix.trans, B MN-major); "
+                             "f32: FFMA"}
     for row in (fwd, bwd):
         row.update(common)
         row["bound_ms"], row["bound_by"] = bound(row["bytes"], row["flops"],
@@ -1086,7 +1256,9 @@ def check_train_stack(dev):
                tolerance="bf16 rtol 2e-2 atol 2e-2, cosine >= 0.999; f32 "
                          "rtol 1e-4 atol 1e-4, cosine >= 0.99999",
                timing="ms, plain_ms, library_ms, bound_ms: sums over the "
-                      "two shapes of one train step, bf16, 96 images")
+                      "two shapes of one train step, bf16, 96 images; "
+                      "shapes.<name>.passes (kernel 9): each pass's time "
+                      "and device-memory floor, summed over the blocks")
     bwd.update(name="bottleneck_train_bwd",
                replaces="eov_tpu/ops/pallas_bottleneck_train.py:612",
                tolerance="dx and every dW: relative L2 error <= 2e-2 and "

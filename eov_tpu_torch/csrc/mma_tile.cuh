@@ -3,7 +3,8 @@
 // and the bf16 wgmma.mma_async products (A from registers, B from shared
 // memory through a descriptor) with f32 sums, and the XOR swizzle of the
 // activation tiles A is read from. Kernels 4 (basic_stack.cu) and 2 and 5
-// (bottleneck_stack.cu) are built on them; they carry no kernel-specific
+// (bottleneck_stack.cu, over bottleneck_mma.cuh) and 8 and 9
+// (bottleneck_train.cu) are built on them; they carry no kernel-specific
 // layout.
 //
 // Fragment layouts (PTX ISA, "wgmma .m64nNk16", register A): warp w of the
@@ -61,6 +62,20 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+// The transposed load: lane l points at row l%8 of matrix l/8, a 16-byte
+// line of 8 values; thread t receives column t/4, rows 2(t%4) + {0, 1} of
+// each matrix. On [k][m] data (pixels x channels) it gives the register A
+// fragment of the [m][k] tile (the weight gradients' A = activation^T):
+// matrices 0..3 = (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+// (m 8-15, k 8-15).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // wgmma, one warpgroup (4 warps): fence before products that read
 // registers written since, commit the issued products as a group, wait
 // until at most 0 or 1 groups are in flight.
@@ -92,11 +107,48 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// Descriptor of an MN-major wgmma B operand of 64 bf16 columns in one
+// 128-byte swizzle atom: row k (64 n values) 128 B after row k - 1, the
+// 16-byte line l of row k stored at l ^ (k % 8), 8-row groups 1024 B apart
+// (the stride field; the leading field, the step between 64-column atoms,
+// is never taken at N = 64 and is given the same value); 1024-byte
+// aligned. A k16 step advances the address by 2048 B.
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[0..31] += A (64x16, registers) * B (16x64, shared, MN-major, the
+// transpose bit set, descriptor sw128_desc_mn): wgmma m64n64k16, f32 sums;
+// with acc = 0, d = A B (d's old values are not read).
+__device__ __forceinline__ void wgmma_m64n64_tb(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
 // d[0..31] += A (64x16, registers) * B (16x64, shared, K-major,
-// 128-byte swizzle, descriptor desc): wgmma m64n64k16, f32 sums.
+// 128-byte swizzle, descriptor desc): wgmma m64n64k16, f32 sums; with
+// acc = 0, d = A B (d's old values are not read).
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
                                             const uint32_t (&a)[4],
-                                            uint64_t desc) {
+                                            uint64_t desc, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -113,14 +165,15 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 // d[0..63] += A (64x16, registers) * B (16x128, shared, K-major,
-// 128-byte swizzle, descriptor desc): wgmma m64n128k16, f32 sums.
+// 128-byte swizzle, descriptor desc): wgmma m64n128k16, f32 sums; acc as
+// wgmma_m64n64.
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
                                             const uint32_t (&a)[4],
-                                            uint64_t desc) {
+                                            uint64_t desc, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -149,25 +202,25 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 // One m64 tile of kNW (64 or 128) channels: wgmma_m64n64 / _m64n128.
 template <int kNW>
 __device__ __forceinline__ void wgmma_tile(float (&d)[kNW / 2],
                                            const uint32_t (&a)[4],
-                                           uint64_t desc);
+                                           uint64_t desc, int acc = 1);
 template <>
 __device__ __forceinline__ void wgmma_tile<64>(float (&d)[32],
                                                const uint32_t (&a)[4],
-                                               uint64_t desc) {
-  wgmma_m64n64(d, a, desc);
+                                               uint64_t desc, int acc) {
+  wgmma_m64n64(d, a, desc, acc);
 }
 template <>
 __device__ __forceinline__ void wgmma_tile<128>(float (&d)[64],
                                                 const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  wgmma_m64n128(d, a, desc);
+                                                uint64_t desc, int acc) {
+  wgmma_m64n128(d, a, desc, acc);
 }
 
 // Offset in elements of channel n of pixel pix in a swizzled buffer of

@@ -212,7 +212,7 @@ def tile_rows(h: int, w: int) -> int:
 
 
 def _bottleneck_smem(h: int, w: int, cinp: int, cmidp: int, tr: int, g: int,
-                     wn1: int, wn3: int) -> int:
+                     wn1: int, wn3: int, mrows: int = 512) -> int:
     """Shared memory of a bf16 kernel-2 block (``mma_smem`` in
     bottleneck_stack.cu): the weight ring, one or two staged 64-channel x
     chunks of the block's rows and halo, y1 over them at all of cmid's
@@ -222,21 +222,22 @@ def _bottleneck_smem(h: int, w: int, cinp: int, cmidp: int, tr: int, g: int,
     ring = 64 * 64 * 2 * max(wn1, wn3)
     xbuf = g * yrows * w * 128
     y1 = g * yrows * w * cmidp * 2
-    overlay = cmidp == 64 * wn1 and g * tr * w <= 512 // wn1
+    overlay = cmidp == 64 * wn1 and g * tr * w <= mrows // wn1
     y2 = 0 if overlay else g * tr * w * cmidp * 2
     return _MMA_ZERO + _MMA_STAGES * ring + (2 if cinp > 64 else 1) * xbuf \
         + y1 + y2
 
 
 def bottleneck_tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
-                         n: int = 1) -> dict:
+                         n: int = 1, mrows: int = 512) -> dict:
     """The bf16 kernel's tiling of one block over an [n, h*w, cin] map.
 
     Channels are padded to multiples of 64 (``cinp``, ``cmidp``,
     ``coutp``). conv1 and conv2 run in N passes of ``64 wn1`` channels and
-    M passes of ``m_tile = 512 / wn1`` pixels, conv3 in passes of ``64 wn3``
-    and ``m_tile_out = 512 / wn3`` (the block's 8 warps hold 64 x 64
-    products each). Of the tile heights (``tile_rows``; with the whole map,
+    M passes of ``m_tile = mrows / wn1`` pixels, conv3 in passes of ``64
+    wn3`` and ``m_tile_out = mrows / wn3`` (``mrows`` 512: the block's 8
+    warps hold 64 x 64 products each; 256: half of that, as the train
+    forward's promoted sums need twice the registers). Of the tile heights (``tile_rows``; with the whole map,
     ``images`` maps per block, at most ``n``) and pass widths whose block
     fits the shared memory, the plan takes the one with the fewest K steps
     (one 64-deep product of a whole M x N pass and one barrier) per image,
@@ -245,19 +246,19 @@ def bottleneck_tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
     ``smem``, ``steps`` per image and the launch ``grid`` (row tiles, image
     groups). The search is cached per shape: it takes about a millisecond
     of host time, more than a small launch's device time."""
-    return dict(_tile_plan(h, w, cin, cmid, cout, n))
+    return dict(_tile_plan(h, w, cin, cmid, cout, n, mrows))
 
 
 @functools.lru_cache(maxsize=256)
 def _tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
-               n: int) -> dict:
+               n: int, mrows: int) -> dict:
     """``bottleneck_tile_plan``, searched once per shape."""
     cinp, cmidp, coutp = (-(-c // 64) * 64 for c in (cin, cmid, cout))
     kin, kmid, kout = cinp // 64, cmidp // 64, coutp // 64
     kc = kmid + (kin if cin != cout else 0)  # conv3's K chunks
 
     def steps(tr, g, wn1, wn3):
-        mt1, mt3 = 512 // wn1, 512 // wn3
+        mt1, mt3 = mrows // wn1, mrows // wn3
         total = 0
         for r0 in range(0, h, tr):
             rows = min(tr, h - r0)
@@ -274,7 +275,7 @@ def _tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
             for tr in range(1, h + 1):
                 for g in range(1, (n if tr == h else 1) + 1):
                     smem = _bottleneck_smem(h, w, cinp, cmidp, tr, g, wn1,
-                                            wn3)
+                                            wn3, mrows)
                     if smem > _MAX_SMEM:
                         break
                     key = (steps(tr, g, wn1, wn3) / g, -tr * g, smem)
@@ -287,9 +288,9 @@ def _tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
                          f"one row")
     (per_img, _, smem), tr, g, wn1, wn3 = best
     return {"tile_rows": tr, "images": g, "cinp": cinp, "cmidp": cmidp,
-            "coutp": coutp, "wn1": wn1, "wn3": wn3, "m_tile": 512 // wn1,
-            "m_tile_out": 512 // wn3,
-            "overlay": cmidp == 64 * wn1 and g * tr * w <= 512 // wn1,
+            "coutp": coutp, "wn1": wn1, "wn3": wn3, "m_tile": mrows // wn1,
+            "m_tile_out": mrows // wn3,
+            "overlay": cmidp == 64 * wn1 and g * tr * w <= mrows // wn1,
             "smem": smem, "steps": per_img,
             "grid": (-(-h // tr), -(-n // g))}
 

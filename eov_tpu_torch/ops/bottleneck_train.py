@@ -24,10 +24,12 @@ Activations cross the op in f32 ``[N, H*W, C]`` (NHWC memory); rounding
 follows the reference chain: every conv takes T-rounded operands (T the
 compute dtype), accumulates in f32 and rounds its output to T, and the
 frozen affine, the ReLUs and the residual sum run in f32 on that rounded
-output. Kernel 2's folded-weight formulation rounds elsewhere and is not
-reused here. The plain versions' products run in f32 on f32-widened
-operands (exact products of bf16 values); on a GPU the caller keeps TF32
-off (``models.folded_infer.use_full_f32``).
+output. Kernel 2's folded-weight formulation rounds elsewhere; the bf16
+kernels reuse its tensor-core block (``train_tile_plan``) with the train
+chain's epilogues, and the weight gradients tile the pixels
+(``train_wgrad_plan``). The plain versions' products run in f32 on
+f32-widened operands (exact products of bf16 values); on a GPU the caller
+keeps TF32 off (``models.folded_infer.use_full_f32``).
 """
 
 from __future__ import annotations
@@ -39,18 +41,22 @@ import torch
 import torch.nn.functional as F
 
 from eov_tpu_torch.ops import _cuda
-from eov_tpu_torch.ops.bottleneck import stack_flops_per_img, tile_rows
+from eov_tpu_torch.ops.bottleneck import (_MAX_SMEM, _MMA_ZERO,
+                                          _bottleneck_mma_weights,
+                                          _kmajor_tiles,
+                                          bottleneck_tile_plan,
+                                          stack_flops_per_img, tile_rows)
 
 __all__ = ["pack_train_block", "bottleneck_stack_train",
            "BottleneckStackTrain", "train_stack_forward",
            "train_stack_backward", "train_stack_forward_plain",
            "train_stack_backward_plain", "train_stack_forward_cuda",
-           "train_stack_backward_cuda", "train_stack_flops"]
+           "train_stack_backward_cuda", "train_stack_flops",
+           "train_tile_plan", "train_wgrad_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _BLOCK_KEYS = ("w1", "s1", "b1", "w2", "s2", "b2", "w3", "s3", "b3")
 _PROJ_KEYS = ("wd", "sd", "bd")
-_MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
 
 
 def pack_train_block(block, eps: float = 1e-5) -> dict:
@@ -214,20 +220,147 @@ def _lib():
     if lib.train_block_fwd_launch.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sigs = {
-            "train_block_fwd_launch": [p] * 16 + [i] * 8 + [p],
+            "train_block_fwd_launch": [p] * 16 + [i] * 7 + [p],
             "train_bwd_pre_launch": [p] * 7 + [ll, i, i, p],
-            "train_bwd_dy2_launch": [p] * 5 + [i] * 4 + [p],
-            "train_bwd_dy1_launch": [p] * 5 + [i] * 5 + [p],
-            "train_bwd_dx_launch": [p] * 6 + [i] * 5 + [p],
-            "train_wgrad_launch": [i] + [p] * 4 + [i] * 7 + [p],
+            "train_bwd_dy2_launch": [p] * 5 + [i] * 3 + [p],
+            "train_bwd_dy1_launch": [p] * 5 + [i] * 4 + [p],
+            "train_bwd_dx_launch": [p] * 6 + [i] * 4 + [p],
+            "train_wgrad_launch": [i] + [p] * 4 + [i] * 6 + [p],
+            "train_block_fwd_bf16_launch": [p] * 16 + [i] * 13 + [p],
+            "train_bwd_dgrad_bf16_launch": [p] * 13 + [i] * 13 + [p],
+            "train_wgrad_bf16_launch": [i] * 3 + [p] * 4 + [i] * 9 + [p],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        lib.train_block_fwd_smem_bytes.argtypes = [i, i, i, i]
-        lib.train_block_fwd_smem_bytes.restype = ctypes.c_longlong
+        for name, n_args in (("train_block_fwd_smem_bytes", 3),
+                             ("train_mma_smem_bytes", 13),
+                             ("train_wgrad_bf16_smem_bytes", 4)):
+            fn = getattr(lib, name)
+            fn.argtypes = [i] * n_args
+            fn.restype = ll
     return lib
+
+
+def _check_bf16_channels(*chans: int) -> None:
+    if any(c % 8 for c in chans):
+        raise ValueError(f"the bf16 train kernels take channel counts that "
+                         f"are multiples of 8 (16-byte lines), got {chans}")
+
+
+# M rows of a 64-channel pass: the forward's promoted sums (mma_pass
+# kPromote) hold a second set of accumulators, so its passes are half
+# kernel 2's; the input-gradient pass keeps kernel 2's (the C launcher
+# fixes both).
+_FWD_MROWS, _DGRAD_MROWS = 256, 512
+
+
+def train_tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
+                    n: int = 1, *, backward: bool = False) -> dict:
+    """The bf16 tiling of one block of kernel 8, or (``backward=True``) of
+    kernel 9's input-gradient pass, which is the same three-phase block on
+    the block run backwards (g3's cout channels in, the block's cin out).
+    Both kernels are kernel 2's block (``bottleneck_mma.cuh``) with their
+    own epilogues and its shared memory (``mma_smem``, mirrored by
+    ``ops.bottleneck._bottleneck_smem``), so kernel 2's planner
+    (``bottleneck_tile_plan``) tiles them, the forward with M passes of
+    half kernel 2's rows (``mrows`` in the plan)."""
+    _check_bf16_channels(cin, cmid, cout)
+    if backward:
+        cin, cout = cout, cin
+    mrows = _DGRAD_MROWS if backward else _FWD_MROWS
+    return {**bottleneck_tile_plan(h, w, cin, cmid, cout, n, mrows),
+            "mrows": mrows}
+
+
+# Weight gradients: a 1x1's ranges are _WG_PIX pixels, a 3x3's about
+# _WG_3X3_PIX pixels of whole image rows; about _WG_BLOCKS blocks share
+# the ranges (3x3: one 384-thread block per SM, twice over; 1x1: 128
+# threads, two or three per SM, twice over).
+_WG_PIX = 128
+_WG_3X3_PIX = 224
+_WG_BLOCKS = {True: 264, False: 528}
+
+
+def _wgrad_smem(k3: bool, knb: int, w: int, rows: int) -> int:
+    """Shared memory of a weight-gradient block (``wg_smem`` in
+    bottleneck_train.cu): two buffers (one range staged while the other is
+    multiplied) of the A range (a 3x3's with its two halo rows, 1024-byte
+    aligned) and ``knb`` 64-channel G chunks (pixels padded to 16), and a
+    128-byte zero line."""
+    apix = (rows + 2) * w if k3 else _WG_PIX
+    gpix = -(-rows * w // 16) * 16 if k3 else _WG_PIX
+    a = -(-apix * 128 // 1024) * 1024
+    return 2 * (a + knb * gpix * 128) + _MMA_ZERO
+
+
+def train_wgrad_plan(h: int, w: int, ka: int, ng: int, n: int,
+                     taps: int) -> dict:
+    """The bf16 tiling of one weight gradient dW [taps, ka, ng] = sum over
+    the pixels of n [h, w] images of A^T G (``wgrad_bf16``). Blocks of
+    ``grid = (slots, tiles)``: a tile is one 64-channel chunk of A by
+    ``64 knb`` channels of G; a 3x3 (taps 9) range is ``rows`` image rows
+    of one image, a 1x1 range ``_WG_PIX`` pixels; slot s takes ranges s, s
+    + slots, ... in order. Every number depends on the shapes alone, so
+    the partition, and with it dW, is the same run after run. ``part``:
+    floats of the partials' workspace."""
+    _check_bf16_channels(ka, ng)
+    k3 = taps == 9
+    if taps not in (1, 9):
+        raise ValueError(f"a weight gradient has 1 or 9 taps, got {taps}")
+    knb = 2 if not k3 and -(-ng // 64) % 2 == 0 else 1
+    rows = 1
+    if k3:
+        rows = max(1, min(h, _WG_3X3_PIX // w))
+        while rows > 1 and _wgrad_smem(True, 1, w, rows) > _MAX_SMEM:
+            rows -= 1
+        ranges = n * -(-h // rows)
+    else:
+        ranges = -(-n * h * w // _WG_PIX)
+    smem = _wgrad_smem(k3, knb, w, rows)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"weight-gradient tile needs {smem} B of shared "
+                         f"memory (> {_MAX_SMEM}) at w={w}, one row")
+    kchunks = -(-ka // 64)
+    tiles = kchunks * -(-ng // (64 * knb))
+    slots = min(ranges, max(1, -(-_WG_BLOCKS[k3] // tiles)))
+    return {"k3": k3, "knb": knb, "rows": rows, "ranges": ranges,
+            "slots": slots, "tiles": tiles, "kchunks": kchunks,
+            "smem": smem, "grid": (slots, tiles),
+            "part": slots * taps * ka * ng}
+
+
+def _pad2(t: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """[K, N] zero-padded to [k, n]."""
+    return F.pad(t, (0, n - t.shape[1], 0, k - t.shape[0]))
+
+
+def _train_fwd_weights(b, plan) -> tuple:
+    """Kernel 8's bf16 weights as its K loops read them: w1 and w2 as
+    kernel 2's, w3 alone [coutp/NT3][cmidp/64][NT3][64] and, on an entry
+    block, wd [coutp/NT3][cinp/64][NT3][64] (its own pass)."""
+    w1t, w2t, w3t = _bottleneck_mma_weights(
+        {k: b[k] for k in ("w1", "w2", "w3")}, plan)
+    wdt = None
+    if "wd" in b:
+        wdt = _kmajor_tiles(_pad2(b["wd"], plan["cinp"], plan["coutp"]),
+                            64 * plan["wn3"])
+    return w1t, w2t, w3t, wdt
+
+
+def _train_dgrad_weights(b, plan) -> tuple:
+    """Kernel 9's input-gradient weights for ``train_tile_plan(...,
+    backward=True)``: the block run backwards is a block with w1 = w3^T
+    [cout, cmid], w2[t] = w2[8 - t]^T (the transposed 3x3 reads the
+    mirrored taps, which the flip turns into the forward's reads), w3 =
+    w1^T [cmid, cin] and wd = wd^T [cout, cin], relaid out as kernel 2's
+    (dx's K concatenates w1^T's chunks and wd^T's)."""
+    t = {"w1": b["w3"].t(), "w2": b["w2"].flip(0).transpose(1, 2),
+         "w3": b["w1"].t()}
+    if "wd" in b:
+        t["wd"] = b["wd"].t()
+    return _bottleneck_mma_weights(t, plan)
 
 
 def _prep_cuda(x: torch.Tensor, blocks, dtype) -> list[dict]:
@@ -238,6 +371,12 @@ def _prep_cuda(x: torch.Tensor, blocks, dtype) -> list[dict]:
                          f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("the CUDA train stack needs a contiguous x")
+    if dtype == torch.bfloat16:
+        if x.data_ptr() % 16:
+            raise ValueError("the bf16 train kernels need a 16-byte aligned "
+                             "x")
+        for b in blocks:
+            _check_bf16_channels(*b["w1"].shape, b["w3"].shape[1])
     out = []
     for b in blocks:
         pb = {}
@@ -252,23 +391,43 @@ def _prep_cuda(x: torch.Tensor, blocks, dtype) -> list[dict]:
 
 
 def _fwd_block_cuda(lib, x, b, out, y1, y2, h, w, bf16, stream):
+    """One block of kernel 8: bf16 on the tensor cores, f32 on FFMA; y1
+    and y2 (or None) receive the rounded conv2 and conv3 inputs."""
     n = x.shape[0]
     cin, cmid = b["w1"].shape
     cout = b["w3"].shape[1]
+    ptr = _cuda.ptr
+    opt = lambda t: ptr(t) if t is not None else None  # noqa: E731
+    if bf16:
+        plan = train_tile_plan(h, w, cin, cmid, cout, n)
+        dims = (plan["cinp"], plan["cmidp"], plan["coutp"],
+                plan["tile_rows"], plan["images"], plan["wn1"], plan["wn3"])
+        smem = lib.train_mma_smem_bytes(h, w, cin, cmid, cout, *dims,
+                                        plan["mrows"])
+        if smem != plan["smem"]:
+            raise RuntimeError(f"train plan and kernel 8 disagree on shared "
+                               f"memory: {plan['smem']} vs {smem}")
+        # Held until the launch is enqueued: a relaid-out copy freed before
+        # that could hand its memory to the next allocation.
+        w1t, w2t, w3t, wdt = _train_fwd_weights(b, plan)
+        code = lib.train_block_fwd_bf16_launch(
+            ptr(x), ptr(w1t), ptr(b["s1"]), ptr(b["b1"]), ptr(w2t),
+            ptr(b["s2"]), ptr(b["b2"]), ptr(w3t), ptr(b["s3"]),
+            ptr(b["b3"]), opt(wdt), opt(b.get("sd")), opt(b.get("bd")),
+            ptr(out), opt(y1), opt(y2), n, h, w, cin, cmid, cout, *dims,
+            stream)
+        _cuda.check(code, "train_block_fwd_bf16")
+        return
     tr = tile_rows(h, w)
-    smem = lib.train_block_fwd_smem_bytes(bf16, w, cmid, tr)
+    smem = lib.train_block_fwd_smem_bytes(w, cmid, tr)
     if smem > _MAX_SMEM:
         raise ValueError(f"train block tile needs {smem} B of shared memory "
                          f"(> {_MAX_SMEM}) at w={w}, cmid={cmid}")
-    ptr = _cuda.ptr
-    opt = lambda k: ptr(b[k]) if k in b else None  # noqa: E731
     code = lib.train_block_fwd_launch(
         ptr(x), ptr(b["w1"]), ptr(b["s1"]), ptr(b["b1"]), ptr(b["w2"]),
         ptr(b["s2"]), ptr(b["b2"]), ptr(b["w3"]), ptr(b["s3"]), ptr(b["b3"]),
-        opt("wd"), opt("sd"), opt("bd"), ptr(out),
-        ptr(y1) if y1 is not None else None,
-        ptr(y2) if y2 is not None else None,
-        n, h, w, cin, cmid, cout, tr, bf16, stream)
+        opt(b.get("wd")), opt(b.get("sd")), opt(b.get("bd")), ptr(out),
+        opt(y1), opt(y2), n, h, w, cin, cmid, cout, tr, stream)
     _cuda.check(code, "train_block_fwd")
 
 
@@ -278,7 +437,7 @@ def train_stack_forward_cuda(x: torch.Tensor, blocks, *, h: int, w: int,
     _check(x, blocks, h, w, dtype)
     pblocks = _prep_cuda(x, blocks, dtype)
     lib = _lib()
-    bf16 = int(dtype == torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
     stream = _cuda.stream_ptr(x.device)
     for b in pblocks:
         out = torch.empty(x.shape[0], h * w, b["w3"].shape[1],
@@ -289,20 +448,70 @@ def train_stack_forward_cuda(x: torch.Tensor, blocks, *, h: int, w: int,
     return x
 
 
+def _dgrad_bf16(lib, b, g3, gd, dpre, y1, y2, g2, g1, dx, h, w, stream):
+    """Kernel 9's input-gradient pass of one block in bf16: g2, g1 (into
+    the given buffers) and dx in one launch."""
+    n = g3.shape[0]
+    cin, cmid = b["w1"].shape
+    cout = b["w3"].shape[1]
+    plan = train_tile_plan(h, w, cin, cmid, cout, n, backward=True)
+    tiles = (plan["tile_rows"], plan["images"], plan["wn1"], plan["wn3"])
+    smem = lib.train_mma_smem_bytes(h, w, cout, cmid, cin, plan["cinp"],
+                                    plan["cmidp"], plan["coutp"], *tiles,
+                                    plan["mrows"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"train plan and kernel 9 disagree on shared "
+                           f"memory: {plan['smem']} vs {smem}")
+    wa, wb, wc = _train_dgrad_weights(b, plan)  # held until enqueued
+    ptr = _cuda.ptr
+    opt = lambda t: ptr(t) if t is not None else None  # noqa: E731
+    code = lib.train_bwd_dgrad_bf16_launch(
+        ptr(g3), opt(gd), ptr(wa), ptr(wb), ptr(wc), ptr(y1), ptr(y2),
+        ptr(b["s1"]), ptr(b["s2"]), opt(dpre), ptr(g2), ptr(g1), ptr(dx),
+        n, h, w, cin, cmid, cout, plan["coutp"], plan["cmidp"],
+        plan["cinp"], *tiles, stream)
+    _cuda.check(code, "train_bwd_dgrad_bf16")
+
+
+def _wgrad_bf16(lib, a, g, part, dw, h, w, ka, ng, taps, stream):
+    """One weight gradient in bf16 (``train_wgrad_plan``); ``a`` is the
+    f32 block input (rounded as it is staged) or a bf16 activation."""
+    n = a.shape[0]
+    plan = train_wgrad_plan(h, w, ka, ng, n, taps)
+    smem = lib.train_wgrad_bf16_smem_bytes(int(plan["k3"]), plan["knb"], w,
+                                           plan["rows"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"wgrad plan and kernel disagree on shared "
+                           f"memory: {plan['smem']} vs {smem}")
+    if part.numel() < plan["part"]:
+        raise ValueError(f"wgrad workspace of {part.numel()} floats < "
+                         f"{plan['part']}")
+    code = lib.train_wgrad_bf16_launch(
+        int(plan["k3"]), plan["knb"], int(a.dtype == torch.float32),
+        _cuda.ptr(a), _cuda.ptr(g), _cuda.ptr(part), _cuda.ptr(dw), n, h, w,
+        ka, ng, plan["rows"], plan["ranges"], plan["slots"], plan["tiles"],
+        stream)
+    _cuda.check(code, "train_wgrad_bf16")
+
+
 def train_stack_backward_cuda(x: torch.Tensor, blocks, dy: torch.Tensor, *,
                               h: int, w: int, dtype=torch.bfloat16):
-    """Kernel 9 on CUDA tensors: (dx f32, [per-block f32 dW dicts])."""
+    """Kernel 9 on CUDA tensors: (dx f32, [per-block f32 dW dicts]). Per
+    block, in reverse: bwd_pre, the input gradient (bf16: one launch; f32:
+    dy2, dy1, dx), then the weight gradients in the order w3, w2, w1
+    (, wd)."""
     _check(x, blocks, h, w, dtype)
     if dy.shape[:2] != x.shape[:2] or dy.dtype != torch.float32:
         raise ValueError(f"dy must be f32 [N, P, Cout], got {dy.dtype} "
                          f"{tuple(dy.shape)}")
     pblocks = _prep_cuda(x, blocks, dtype)
     lib = _lib()
-    bf16 = int(dtype == torch.bfloat16)
+    bf16 = dtype == torch.bfloat16
     stream = _cuda.stream_ptr(x.device)
     dev, n, p = x.device, x.shape[0], h * w
     rows = n * p
     ptr = _cuda.ptr
+    opt = lambda t: ptr(t) if t is not None else None  # noqa: E731
 
     def empty(c, dt=dtype):
         return torch.empty(n, p, c, dtype=dt, device=dev)
@@ -328,43 +537,47 @@ def train_stack_backward_cuda(x: torch.Tensor, blocks, dy: torch.Tensor, *,
         gd = empty(cout) if proj else None
         dpre = None if proj else empty(cout, torch.float32)
         _cuda.check(lib.train_bwd_pre_launch(
-            ptr(xs[i + 1]), ptr(d), ptr(b["s3"]),
-            ptr(b["sd"]) if proj else None,
-            ptr(dpre) if dpre is not None else None, ptr(g3),
-            ptr(gd) if proj else None, rows, cout, bf16, stream),
+            ptr(xs[i + 1]), ptr(d), ptr(b["s3"]), opt(b.get("sd")),
+            opt(dpre), ptr(g3), opt(gd), rows, cout, int(bf16), stream),
             "train_bwd_pre")
-        # 3. g2
-        g2 = empty(cmid)
-        _cuda.check(lib.train_bwd_dy2_launch(
-            ptr(g3), ptr(b["w3"]), ptr(y2s[i]), ptr(b["s2"]), ptr(g2), rows,
-            cmid, cout, bf16, stream), "train_bwd_dy2")
-        # 4. g1 through the transposed 3x3
-        g1 = empty(cmid)
-        _cuda.check(lib.train_bwd_dy1_launch(
-            ptr(g2), ptr(b["w2"]), ptr(y1s[i]), ptr(b["s1"]), ptr(g1), n, h,
-            w, cmid, bf16, stream), "train_bwd_dy1")
-        # 5. dx
+        # 3.-5. g2, g1 (the transposed 3x3) and dx
+        g2, g1 = empty(cmid), empty(cmid)
         dx = empty(cin, torch.float32)
-        _cuda.check(lib.train_bwd_dx_launch(
-            ptr(g1), ptr(b["w1"]), ptr(gd) if proj else None,
-            ptr(b["wd"]) if proj else None,
-            ptr(dpre) if dpre is not None else None, ptr(dx), rows, cin,
-            cmid, cout, bf16, stream), "train_bwd_dx")
-        # 6. dW: per-image partials, summed in image order.
+        if bf16:
+            _dgrad_bf16(lib, b, g3, gd, dpre, y1s[i], y2s[i], g2, g1, dx, h,
+                        w, stream)
+        else:
+            _cuda.check(lib.train_bwd_dy2_launch(
+                ptr(g3), ptr(b["w3"]), ptr(y2s[i]), ptr(b["s2"]), ptr(g2),
+                rows, cmid, cout, stream), "train_bwd_dy2")
+            _cuda.check(lib.train_bwd_dy1_launch(
+                ptr(g2), ptr(b["w2"]), ptr(y1s[i]), ptr(b["s1"]), ptr(g1), n,
+                h, w, cmid, stream), "train_bwd_dy1")
+            _cuda.check(lib.train_bwd_dx_launch(
+                ptr(g1), ptr(b["w1"]), opt(gd), opt(b.get("wd")), opt(dpre),
+                ptr(dx), rows, cin, cmid, cout, stream), "train_bwd_dx")
+        # 6. dW: partials over a fixed partition, summed in a fixed order.
         jobs = [("w3", 0, y2s[i], g3, cmid, cout, 1),
                 ("w2", 2, y1s[i], g2, cmid, cmid, 9),
                 ("w1", 1, xb, g1, cin, cmid, 1)]
         if proj:
             jobs.append(("wd", 1, xb, gd, cin, cout, 1))
-        part = torch.empty(max(n * t * k * c for *_, k, c, t in jobs),
-                           dtype=torch.float32, device=dev)
+        if bf16:
+            size = max(train_wgrad_plan(h, w, k, c, n, t)["part"]
+                       for *_, k, c, t in jobs)
+        else:
+            size = max(n * t * k * c for *_, k, c, t in jobs)
+        part = torch.empty(size, dtype=torch.float32, device=dev)
         dws[i] = {}
         for name, amode, a, g, k, c, taps in jobs:
             dw = torch.empty((taps, k, c) if taps > 1 else (k, c),
                              dtype=torch.float32, device=dev)
-            _cuda.check(lib.train_wgrad_launch(
-                amode, ptr(a), ptr(g), ptr(part), ptr(dw), n, h, w, k, c,
-                taps, bf16, stream), "train_wgrad")
+            if bf16:
+                _wgrad_bf16(lib, a, g, part, dw, h, w, k, c, taps, stream)
+            else:
+                _cuda.check(lib.train_wgrad_launch(
+                    amode, ptr(a), ptr(g), ptr(part), ptr(dw), n, h, w, k, c,
+                    taps, stream), "train_wgrad")
             dws[i][name] = dw
         train_stack_backward.launches += 1
         d = dx

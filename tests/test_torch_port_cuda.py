@@ -180,6 +180,87 @@ def test_train_stack_kernels(dev, h, w, cin, cmid, cout, proj, dtype):
         assert float(cos) > (0.99999 if dtype == torch.float32 else 0.999)
 
 
+# One block at each of the train path's block shapes (ResNet-50 stage 1's
+# entry and tail blocks, the stage-2 tail; chip_smoke.TRAIN_SHAPES), bf16
+# at 4 images, held to check_train_stack's bars: the forward rtol/atol
+# 2e-2 and cosine >= 0.999, dx and every dW relative L2 <= 2e-2 and
+# cosine >= 0.999 (whole-tensor bars: at full shape a ReLU mask of the
+# backward can flip where a pre-activation lies within rounding of zero).
+TRAIN_PATH_BLOCKS = [(56, 56, 64, 64, 256, True), (56, 56, 256, 64, 256, False),
+                     (28, 28, 512, 128, 512, False)]
+
+
+@pytest.mark.parametrize("h,w,cin,cmid,cout,proj", TRAIN_PATH_BLOCKS)
+def test_train_block_full_shape(dev, h, w, cin, cmid, cout, proj):
+    rng = np.random.default_rng(cin + cout)
+
+    def mk(shape, loc=0.0, scale=1.0):
+        return torch.from_numpy(rng.normal(loc, scale, shape).astype(
+            np.float32)).to(dev)
+
+    b = {"w1": mk((cin, cmid), scale=cin ** -0.5),
+         "w2": mk((9, cmid, cmid), scale=(9 * cmid) ** -0.5),
+         "w3": mk((cmid, cout), scale=cmid ** -0.5),
+         "s1": mk(cmid, 1, 0.1), "b1": mk(cmid, 0, 0.1),
+         "s2": mk(cmid, 1, 0.1), "b2": mk(cmid, 0, 0.1),
+         "s3": mk(cout, 1, 0.1), "b3": mk(cout, 0, 0.1)}
+    if proj:
+        b.update(wd=mk((cin, cout), scale=cin ** -0.5), sd=mk(cout, 1, 0.1),
+                 bd=mk(cout, 0, 0.1))
+    x = torch.relu(mk((4, h * w, cin)))
+    dy = mk((4, h * w, cout))
+    got = bt.train_stack_forward_cuda(x, [b], h=h, w=w)
+    want = bt.train_stack_forward_plain(x, [b], h=h, w=w)
+    assert float(((got - want).abs() - 2e-2 * (1 + want.abs())).max()) <= 0
+    assert float(F.cosine_similarity(got.flatten(), want.flatten(),
+                                     dim=0)) >= 0.999
+    dx, dws = bt.train_stack_backward_cuda(x, [b], dy, h=h, w=w)
+    dx_p, dws_p = bt.train_stack_backward_plain(x, [b], dy, h=h, w=w)
+    pairs = [("dx", dx, dx_p)] + [(k, dws[0][k], dws_p[0][k])
+                                  for k in dws_p[0]]
+    assert sorted(dws[0]) == sorted(dws_p[0])
+    for name, g, p in pairs:
+        g, p = g.flatten(), p.flatten()
+        rel_l2 = float((g - p).norm() / p.norm())
+        cos = float(F.cosine_similarity(g, p, dim=0))
+        assert rel_l2 <= 2e-2 and cos >= 0.999, (name, rel_l2, cos)
+
+
+def test_train_forward_saves_y1_y2(dev):
+    """A bf16 forward launch with saves writes y1 and y2 equal to the
+    plain _block_forward's. x is a multiple of 1/4 in [0, 2], the weights
+    multiples of 1/8 in [-1/4, 1/4], the scales multiples of 1/8 in
+    [1/2, 3/2] and the shifts multiples of 1/16: then every f32 sum of both
+    versions is exact (at most 20 significant bits), so the kernel's
+    summation order cannot move a rounding to bf16."""
+    rng = np.random.default_rng(21)
+    h, w, cin, cmid, cout, n = 6, 7, 16, 8, 32, 2
+
+    def grid(shape, step, lo, hi):
+        return torch.from_numpy((rng.integers(lo, hi + 1, shape) * step)
+                                .astype(np.float32)).to(dev)
+
+    b = {"w1": grid((cin, cmid), 1 / 8, -2, 2),
+         "w2": grid((9, cmid, cmid), 1 / 8, -2, 2),
+         "w3": grid((cmid, cout), 1 / 8, -2, 2),
+         "wd": grid((cin, cout), 1 / 8, -2, 2)}
+    for k, c in (("1", cmid), ("2", cmid), ("3", cout), ("d", cout)):
+        b["s" + k] = grid(c, 1 / 8, 4, 12)
+        b["b" + k] = grid(c, 1 / 16, -4, 4)
+    x = grid((n, h * w, cin), 1 / 4, 0, 8)
+    pb = bt._prep_cuda(x, [b], torch.bfloat16)[0]
+    out = torch.empty(n, h * w, cout, device=dev)
+    y1, y2 = (torch.empty(n, h * w, cmid, dtype=torch.bfloat16, device=dev)
+              for _ in range(2))
+    bt._fwd_block_cuda(bt._lib(), x, pb, out, y1, y2, h, w, True,
+                       bt._cuda.stream_ptr(dev))
+    out_p, y1_p, y2_p = bt._block_forward(x, b, h, w, torch.bfloat16)
+    assert y1_p.abs().max() > 0 and y2_p.abs().max() > 0
+    assert torch.equal(y1, y1_p)
+    assert torch.equal(y2, y2_p)
+    assert torch.equal(out, out_p)
+
+
 def test_train_stack_dw_deterministic(dev):
     """Two backward runs on the same inputs give bitwise-equal dW and dx
     (per-image partials summed in a fixed order, no float atomics)."""
