@@ -19,7 +19,10 @@ Phases (any failure exits non-zero):
    their shapes (ResNet-50 stage 1 and the stage-2 tail, 96 images) in
    bf16, and in f32 on 16 images, and kernel 9's passes are timed one by
    one beside each pass's memory floor; kernel 7 (the int8 stage-1 stack) bit
-   for bit at 256 images in bf16 and 16 in f32;
+   for bit at 256 images in bf16 and 16 in f32, its tile plan and the
+   memory floor of one launch per block printed beside its bound; kernel
+   3 also at the embodied eval's support (M=6, masked), bit-equal run to
+   run;
 4. run the extraction main path: a synthetic dataset stored at 256x320 (so
    the crop kernel runs), full-width ResNet-50 with seeded random weights,
    K=8, 32 clips per batch, bf16 -> ``extract_features`` into a store ->
@@ -455,6 +458,20 @@ def check_int8_stack(dev):
     io = n * h * w * (64 + 256) * 2 + sum(
         v.numel() * v.element_size() for b in packed for v in b.values())
     b, by = bound(io, ops, torch.int8)
+    # The tiles each launch runs by, and what one launch per block must move
+    # (each block's input and output through device memory).
+    plans = []
+    for blk in packed:
+        cin, cmid = blk["w1"].shape
+        p = bi.int8_tile_plan(h, w, cin, cmid, blk["w3"].shape[1], n,
+                              "wd" in blk)
+        plans.append({k: p[k] for k in ("tile_rows", "images", "smem",
+                                        "halo", "wn1", "wn3", "steps",
+                                        "grid")})
+    floor_ms = _block_io_bytes(xb, packed) / HBM_BYTES_PER_S * 1e3
+    print(json.dumps({"int8_stack_plan": plans,
+                      "launch_floor_ms": floor_ms, "bound_ms": b}),
+          flush=True)
     return {
         "name": "bottleneck_int8", "route": "cuda",
         "source": "eov_tpu_torch/csrc/bottleneck_int8.cu",
@@ -506,6 +523,22 @@ def check_matcher(dev):
                      sim.episode_scores_plain(query, sup3, m3), 0.0, 1e-5)
     if not ok:
         fail(f"episode matcher (masked) disagrees: max err {err}")
+    # the embodied eval's support: 1 real + 5 virtual members, masked
+    sup6 = torch.randn(e, n, 6, d, generator=gen, device=dev)
+    m6 = (torch.rand(e, n, 6, generator=gen, device=dev) > 0.4).float()
+    m6[..., 0] = 1
+    err6 = {}
+    for metric in ("cosine", "euclidean"):
+        got6 = sim.episode_scores_cuda(query, sup6, m6, metric=metric)
+        ok, err6[metric] = rel_ok(
+            got6, sim.episode_scores_plain(query, sup6, m6, metric=metric),
+            0.0 if metric == "cosine" else 1e-6, 1e-5)
+        if not ok:
+            fail(f"episode matcher (embodied M=6, masked, {metric}) "
+                 f"disagrees: max err {err6[metric]}")
+        if not torch.equal(got6, sim.episode_scores_cuda(query, sup6, m6,
+                                                         metric=metric)):
+            fail(f"episode matcher ({metric}) differs run to run")
     qn = sim.l2_normalize(query)
     sn = sim.l2_normalize(support)
     b, by = bound(4 * (e * q * d + e * n * m * d + e * n * m + e * q * n),
@@ -524,8 +557,16 @@ def check_matcher(dev):
         "library_ms": cuda_ms(
             lambda: torch.einsum("eqd,enmd->eqnm", qn, sn),
             repeats=25, inner=20, graph=True),
-        "library_call": "torch.einsum over normalized rows (f32, no TF32)",
-        "shape": f"f32 q [{e}, {q}, {d}], s [{e}, {n}, {m}, {d}]",
+        "library_call": "torch.einsum over rows normalized beforehand (f32, "
+                        "no TF32): the dots only, without the norms, the "
+                        "mask and the max over members the kernel also "
+                        "computes",
+        "embodied_ms": cuda_ms(lambda: sim.episode_scores_cuda(query, sup6,
+                                                               m6),
+                               repeats=25, inner=20, graph=True),
+        "embodied_max_abs_err": err6,
+        "shape": f"f32 q [{e}, {q}, {d}], s [{e}, {n}, {m}, {d}]; embodied "
+                 f"s [{e}, {n}, 6, {d}] masked",
     }
 
 

@@ -1,10 +1,11 @@
 // Tensor-core building blocks for Hopper (sm_90a) kernels of the port:
 // asynchronous global -> shared copies (cp.async), ldmatrix fragment loads
 // and the bf16 wgmma.mma_async products (A from registers, B from shared
-// memory through a descriptor) with f32 sums, and the XOR swizzle of the
-// activation tiles A is read from. Kernels 4 (basic_stack.cu) and 2 and 5
-// (bottleneck_stack.cu, over bottleneck_mma.cuh) and 8 and 9
-// (bottleneck_train.cu) are built on them; they carry no kernel-specific
+// memory through a descriptor) with f32 sums, the int8 ones (s8 x s8, int32
+// sums) and the XOR swizzle of the activation tiles A is read from.
+// Kernels 4 (basic_stack.cu) and 2 and 5 (bottleneck_stack.cu, over
+// bottleneck_mma.cuh), 8 and 9 (bottleneck_train.cu) and 7
+// (bottleneck_int8.cu) are built on them; they carry no kernel-specific
 // layout.
 //
 // Fragment layouts (PTX ISA, "wgmma .m64nNk16", register A): warp w of the
@@ -14,6 +15,13 @@
 // in shared memory when lane l points at row l%16, k-half l/16. The f32
 // accumulator d[4j + {0, 1}] is row 16w + l/4, columns 8j + 2(l%4) +
 // {0, 1}; d[4j + {2, 3}] the row 8 below.
+//
+// int8 (PTX ISA, "wgmma .m64nNk32", register A, .s8): lane l holds rows
+// 16w + l/4 and + 8 at k = 4(l%4) + {0..3} and the same + 16, four bytes
+// to a register: byte for byte the bf16 k16 fragment above, so ldsm_x4
+// on a 16-row x 32-byte tile gives it unchanged. The int32 accumulator
+// is laid out as the f32 one. Integer wgmma has no transpose bit (both
+// operands K-major) and no scale-a/b immediates.
 #pragma once
 
 #include <cstdint>
@@ -221,6 +229,97 @@ __device__ __forceinline__ void wgmma_tile<128>(float (&d)[64],
                                                 const uint32_t (&a)[4],
                                                 uint64_t desc, int acc) {
   wgmma_m64n128(d, a, desc, acc);
+}
+
+// Descriptor of a K-major wgmma operand in 64-byte swizzle atoms: rows of
+// 64 int8 k (64 B), the 16-byte line l of row r stored at l ^ ((r / 2) % 4)
+// (address bits 4-5 XOR bits 7-8), 8-row groups 512 B apart (the stride
+// field; the leading field is not read when the K of one product, 32 B,
+// lies inside the row); atoms 512-byte aligned; layout type 2 (64-byte
+// swizzle) in bits 62-63. A k32 step inside the row advances the address
+// by 32 B.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// d[0..31] += A (64x32 s8, registers) * B (32x64 s8, shared, K-major,
+// descriptor desc): wgmma m64n64k32, exact int32 sums; with acc = 0,
+// d = A B.
+__device__ __forceinline__ void wgmma_s8_m64n64(int (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t desc, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// d[0..63] += A (64x32 s8, registers) * B (32x128 s8, shared, K-major):
+// wgmma m64n128k32, exact int32 sums; acc as wgmma_s8_m64n64.
+__device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+// One m64 tile of kNW (64 or 128) channels: wgmma_s8_m64n64 / _m64n128.
+template <int kNW>
+__device__ __forceinline__ void wgmma_s8_tile(int (&d)[kNW / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, int acc = 1);
+template <>
+__device__ __forceinline__ void wgmma_s8_tile<64>(int (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc, int acc) {
+  wgmma_s8_m64n64(d, a, desc, acc);
+}
+template <>
+__device__ __forceinline__ void wgmma_s8_tile<128>(int (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc, int acc) {
+  wgmma_s8_m64n128(d, a, desc, acc);
 }
 
 // Offset in elements of channel n of pixel pix in a swizzled buffer of

@@ -23,28 +23,40 @@ identity residual, both in T), ReLU. This is not kernel 2's chain: there
 The plain PyTorch version below computes exactly that, with the products
 summed in int32 (``int_mm``: ``torch._int_mm``, never an f32 matmul), and
 is the kernel's oracle. ``fused_bottleneck_stack_int8`` picks by the
-tensor's device.
+tensor's device. The kernel runs its products on the int8 tensor cores in
+both compute dtypes, over tiles from ``int8_tile_plan`` and weights relaid
+out by ``_int8_mma_weights``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping
 
 import torch
 import torch.nn.functional as F
 
 from eov_tpu_torch.ops import _cuda
+from eov_tpu_torch.ops.bottleneck import _kmajor_tiles, _mma_weights
 
 __all__ = ["pack_bottleneck_params_int8", "prepare_site", "int_mm",
            "quantize_act", "fused_bottleneck_stack_int8",
-           "bottleneck_stack_int8_plain", "bottleneck_stack_int8_cuda"]
+           "bottleneck_stack_int8_plain", "bottleneck_stack_int8_cuda",
+           "int8_tile_plan"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _KEYS = ("w1", "s1", "q1", "b1", "w2", "s2", "q2", "b2",
          "w3", "s3", "q3", "b3")
 _PROJ = ("wd", "sd", "qd", "bd")
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+_STAGES = 3         # weight tiles in flight (kStages)
+_ZERO = 128         # the zero line (kZeroBytes)
+_MROWS = 512        # M rows of a pass: the 8 warps x 64 rows of products
+# Bytes one SM's share of device memory moves in the time of one K step at
+# the int8 tensor-core peak (H100: 3.35 TB/s / 132 SMs x (512 x 64 x 64 x 2
+# ops / (1979 TOPS / 132))): the plan's exchange rate of bytes for steps.
+_STEP_BYTES = 7100
 
 
 def prepare_site(qconv: Mapping[str, torch.Tensor]) -> dict:
@@ -187,28 +199,135 @@ def _lib():
     fn = lib.bottleneck_int8_block_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 18 + [i] * 8 + [p]
+        fn.argtypes = [p] * 17 + [i] * 17 + [p]
         fn.restype = ctypes.c_int
-        lib.bottleneck_int8_smem_bytes.argtypes = [i, i, i]
+        lib.bottleneck_int8_smem_bytes.argtypes = [i] * 9
         lib.bottleneck_int8_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def tile_rows(h: int, w: int) -> int:
-    """Output rows per thread block: as many as fit a 128-pixel tile."""
-    if w > 128:
-        raise ValueError(f"map width {w} > 128 is not supported by the int8 "
-                         "bottleneck kernel's 128-pixel tiles")
-    return max(1, min(h, 128 // w))
+def _int8_smem(h: int, w: int, cinp: int, cmidp: int, tr: int, g: int,
+               wn1: int, wn3: int, proj: bool) -> int:
+    """Shared memory of one kernel-7 block (``int8_smem`` in
+    bottleneck_int8.cu): the weight ring, the zero line, the int8 x tile
+    over the block's rows and halo at all of cin's channels (y2 takes its
+    place after conv1), y1 over the same rows, and on an entry block the
+    projection's x over the output rows."""
+    yrows = min(tr + 2, h)
+    px_in, px_out = g * yrows * w, g * tr * w
+    ring = 64 * 64 * max(wn1, wn3)
+    xd = px_out * cinp if proj else 0
+    return _STAGES * ring + _ZERO + max(px_in * cinp, px_out * cmidp) \
+        + px_in * cmidp + xd
+
+
+def int8_tile_plan(h: int, w: int, cin: int, cmid: int, cout: int,
+                   n: int = 1, proj: bool | None = None) -> dict:
+    """The kernel's tiling of one int8 block over an [n, h*w, cin] map.
+
+    Channels are padded with zeros to multiples of 64 (``cinp``, ``cmidp``,
+    ``coutp``; a K step is one 64-channel plane). conv1 and conv2 run in N
+    passes of ``64 wn1`` channels (wn1 1 or 2) and M passes of ``m_tile =
+    512 / wn1`` pixels, conv3 and the projection in passes of ``64 wn3``
+    and ``m_tile_out = 512 / wn3``. Of the tile heights (``tile_rows``;
+    with the whole map, ``images`` maps per block, at most ``n``) and pass
+    widths whose block fits the shared memory, the plan takes the one with
+    the least cost per image, then the most rows a block, then the least
+    shared memory. The cost counts K steps (one 64-deep product of a whole
+    M x N pass and one barrier; every step is 512 x 64 x 64 products) and
+    the block's input rows (halo included) and output rows in bf16 bytes,
+    at ``_STEP_BYTES`` a step: a block stages its input before its first
+    product, so a halo row costs as much as the steps its bytes take to
+    arrive. Returns those, ``smem``, ``steps`` per image, ``cost``,
+    ``halo`` (the staged rows over the output rows, (TR + 2) / TR when TR
+    < h) and the launch ``grid`` (row tiles, image groups). ``proj``: the
+    block has a projection shortcut (default: when cin != cout)."""
+    if proj is None:
+        proj = cin != cout
+    return dict(_int8_plan(h, w, cin, cmid, cout, n, bool(proj)))
+
+
+def _int8_cost(h: int, w: int, cin: int, cmid: int, cout: int, proj: bool,
+               tr: int, g: int, wn1: int, wn3: int) -> tuple[int, float]:
+    """(K steps, cost) of the blocks that cover g images: cost = the steps
+    plus the bf16 bytes of the blocks' input rows (halo included) and
+    output rows at ``_STEP_BYTES`` a step."""
+    kin, kmid, kout = (-(-c // 64) for c in (cin, cmid, cout))
+    kc = kmid + (kin if proj else 0)  # conv3's K steps (+ the projection)
+    mt1, mt3 = _MROWS // wn1, _MROWS // wn3
+    steps = io = 0
+    for r0 in range(0, h, tr):
+        rows = min(tr, h - r0)
+        ra = min(r0 + rows + 1, h) - max(r0 - 1, 0)
+        mb = g * rows * w
+        steps += (-(-g * ra * w // mt1) * (kmid // wn1) * kin
+                  + -(-mb // mt1) * (kmid // wn1) * kmid * 9
+                  + -(-mb // mt3) * (kout // wn3) * kc)
+        io += 2 * g * w * (ra * cin + rows * cout)
+    return steps, steps + io / _STEP_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def _int8_plan(h: int, w: int, cin: int, cmid: int, cout: int, n: int,
+               proj: bool) -> dict:
+    """``int8_tile_plan``, searched once per shape."""
+    cinp, cmidp, coutp = (-(-c // 64) * 64 for c in (cin, cmid, cout))
+    kmid, kout = cmidp // 64, coutp // 64
+
+    best = None
+    for wn1 in (v for v in (1, 2) if kmid % v == 0):
+        for wn3 in (v for v in (1, 2, 4) if kout % v == 0):
+            for tr in range(1, h + 1):
+                for g in range(1, (n if tr == h else 1) + 1):
+                    smem = _int8_smem(h, w, cinp, cmidp, tr, g, wn1, wn3,
+                                      proj)
+                    if smem > _MAX_SMEM:
+                        break
+                    k, cost = _int8_cost(h, w, cin, cmid, cout, proj, tr,
+                                         g, wn1, wn3)
+                    key = (cost / g, -tr * g, smem)
+                    if best is None or key < best[0]:
+                        best = (key, tr, g, wn1, wn3, k / g)
+    if best is None:
+        least = _int8_smem(h, w, cinp, cmidp, 1, 1, 1, 1, proj)
+        raise ValueError(f"int8 bottleneck tile needs {least} B of shared "
+                         f"memory (> {_MAX_SMEM}) at w={w}, cin={cin}, "
+                         f"cmid={cmid}, one row")
+    (cost, _, smem), tr, g, wn1, wn3, per_img = best
+    return {"tile_rows": tr, "images": g, "cinp": cinp, "cmidp": cmidp,
+            "coutp": coutp, "wn1": wn1, "wn3": wn3,
+            "m_tile": _MROWS // wn1, "m_tile_out": _MROWS // wn3,
+            "proj": proj, "smem": smem, "steps": per_img, "cost": cost,
+            "halo": min(tr + 2, h) / tr,
+            "grid": (-(-h // tr), -(-n // g))}
+
+
+def _int8_mma_weights(b, plan) -> tuple:
+    """A packed block's int8 weights as the kernel's K loops read them,
+    zero-padded, each tile [NT][64] K-major: w1 [cmidp/NT1][cinp/64][NT1]
+    [64], w2 [cmidp/NT1][cmidp/64][9][NT1][64], and w3 with (on an entry
+    block) wd's tiles before its own, [coutp/NT3][cinp/64 +
+    cmidp/64][NT3][64] (the projection's pass runs first)."""
+    cin, cmid = b["w1"].shape
+    cout = b["w3"].shape[1]
+    cinp, cmidp, coutp = plan["cinp"], plan["cmidp"], plan["coutp"]
+    nt1, nt3 = 64 * plan["wn1"], 64 * plan["wn3"]
+    w1 = F.pad(b["w1"], (0, cmidp - cmid, 0, cinp - cin))
+    w3 = F.pad(b["w3"], (0, coutp - cout, 0, cmidp - cmid))
+    if "wd" in b:
+        w3 = torch.cat([F.pad(b["wd"], (0, coutp - cout, 0, cinp - cin)), w3])
+    return (_kmajor_tiles(w1, nt1), _mma_weights(b["w2"], cmidp, nt1),
+            _kmajor_tiles(w3, nt3))
 
 
 def bottleneck_stack_int8_cuda(x: torch.Tensor, blocks, *, h: int,
                                w: int) -> torch.Tensor:
-    """The CUDA kernel, one launch per block, on CUDA tensors.
+    """The CUDA kernel, one launch per block, on CUDA tensors (bf16 or f32;
+    the products run on the int8 tensor cores in both).
 
     Weights int8, scales and biases f32, all contiguous on x's device (as
-    ``pack_bottleneck_params_int8`` makes them); Cin and Cmid multiples of
-    4 (the kernel reads int8 operands four to a 32-bit word)."""
+    ``pack_bottleneck_params_int8`` makes them); any channel counts (the
+    kernel pads them to 64)."""
     _check(x, blocks, h, w)
     if x.device.type != "cuda":
         raise ValueError(f"bottleneck_stack_int8_cuda needs a CUDA tensor, "
@@ -222,29 +341,39 @@ def bottleneck_stack_int8_cuda(x: torch.Tensor, blocks, *, h: int,
                     not v.is_contiguous():
                 raise ValueError(f"param {k} must be a contiguous {want} "
                                  f"tensor on {x.device}")
-        cin, cmid = b["w1"].shape
-        if cin % 4 or cmid % 4:
-            raise ValueError(f"int8 kernel needs Cin and Cmid multiples of 4,"
-                             f" got {cin}, {cmid}")
     lib = _lib()
     bf16 = int(x.dtype == torch.bfloat16)
-    tr = tile_rows(h, w)
     stream = _cuda.stream_ptr(x.device)
     n = x.shape[0]
     for b in blocks:
         cin, cmid = b["w1"].shape
         cout = b["w3"].shape[1]
-        smem = lib.bottleneck_int8_smem_bytes(w, cmid, tr)
-        if smem > _MAX_SMEM:
-            raise ValueError(f"int8 bottleneck tile needs {smem} B of shared "
-                             f"memory (> {_MAX_SMEM}) at w={w}, cmid={cmid}")
+        proj = "wd" in b
+        plan = int8_tile_plan(h, w, cin, cmid, cout, n, proj)
+        dims = (plan["cinp"], plan["cmidp"], plan["coutp"],
+                plan["tile_rows"], plan["images"], plan["wn1"], plan["wn3"])
+        smem = lib.bottleneck_int8_smem_bytes(
+            h, w, plan["cinp"], plan["cmidp"], plan["tile_rows"],
+            plan["images"], plan["wn1"], plan["wn3"], int(proj))
+        if smem != plan["smem"]:
+            raise RuntimeError(f"int8 plan and kernel disagree on shared "
+                               f"memory: {plan['smem']} vs {smem}")
         out = torch.empty(n, h * w, cout, dtype=x.dtype, device=x.device)
-        args = [_cuda.ptr(x)]
-        for k in _KEYS + _PROJ:
-            args.append(_cuda.ptr(b[k]) if k in b else None)
+        vec = int(cin % 8 == 0 and x.data_ptr() % 16 == 0)
+        ovec = int(vec and cout % 8 == 0 and out.data_ptr() % 16 == 0)
+        # Held until the launch is enqueued: a relaid-out copy freed before
+        # that could hand its memory to the next allocation.
+        w1t, w2t, w3t = _int8_mma_weights(b, plan)
+        sites = []
+        for tag in ("1", "2", "3", "d"):
+            for k in ("s", "q", "b"):
+                sites.append(_cuda.ptr(b[k + tag]) if proj or tag != "d"
+                             else None)
+        s1, q1, b1, s2, q2, b2, s3, q3, b3, sd, qd, bd = sites
         code = lib.bottleneck_int8_block_launch(
-            *args, _cuda.ptr(out), n, h, w, cin, cmid, cout, tr, bf16,
-            stream)
+            _cuda.ptr(x), _cuda.ptr(w1t), s1, q1, b1, _cuda.ptr(w2t), s2, q2,
+            b2, _cuda.ptr(w3t), s3, q3, b3, sd, qd, bd, _cuda.ptr(out), n, h,
+            w, cin, cmid, cout, *dims, int(proj), vec, ovec, bf16, stream)
         _cuda.check(code, "bottleneck_int8")
         fused_bottleneck_stack_int8.launches += 1
         x = out

@@ -25,8 +25,8 @@ __all__ = ["l2_normalize", "pairwise_scores", "fused_class_scores", "predict",
            "episode_scores_cuda", "MAX_ROWS"]
 
 _NEG = -1e30
-MAX_ROWS = 6144  # query + support rows of one episode: 2 floats each in
-                 # the kernel's default 48 KB of shared memory
+MAX_ROWS = 6144  # query + support rows of one episode the wrapper takes
+                 # (classify chunks its store and queries to fit)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -123,12 +123,13 @@ def episode_scores_plain(query, support, mask, *,
 
 
 def _lib():
-    fn = _cuda.load("episode_scores").episode_scores_launch
+    lib = _cuda.load("episode_scores")
+    fn = lib.episode_scores_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+    return lib
 
 
 def episode_scores_cuda(query, support, mask, *,
@@ -145,9 +146,12 @@ def episode_scores_cuda(query, support, mask, *,
     if q + n * m > MAX_ROWS:
         raise ValueError(f"{q + n * m} rows per episode > {MAX_ROWS}")
     out = torch.empty(e, q, n, dtype=torch.float32, device=query.device)
-    code = _lib()(_cuda.ptr(query), _cuda.ptr(support), _cuda.ptr(mask),
-                  _cuda.ptr(out), e, q, n, m, d, int(metric == "cosine"),
-                  _cuda.stream_ptr(query.device))
+    vec = int(d % 4 == 0 and query.data_ptr() % 16 == 0
+              and support.data_ptr() % 16 == 0)
+    code = _lib().episode_scores_launch(
+        _cuda.ptr(query), _cuda.ptr(support), _cuda.ptr(mask), _cuda.ptr(out),
+        e, q, n, m, d, int(metric == "cosine"), vec,
+        _cuda.stream_ptr(query.device))
     _cuda.check(code, "episode_scores")
     episode_class_scores.launches += 1
     return out

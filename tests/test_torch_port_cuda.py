@@ -102,6 +102,57 @@ def test_episode_scores(dev, metric, fusion):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
+def _features(dev, gen, *shape):
+    return torch.randn(*shape, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("e", [1, 67])
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_episode_scores_grid_edges(dev, e, metric):
+    """One episode (one cluster) and 67 (not a multiple of anything the
+    kernel splits by), at the protocol's Q, N, M and D."""
+    gen = torch.Generator(device=dev).manual_seed(e)
+    q = _features(dev, gen, e, 5, 2048)
+    s = _features(dev, gen, e, 5, 1, 2048)
+    m = torch.ones(e, 5, 1, device=dev)
+    got = similarity.episode_scores_cuda(q, s, m, metric=metric)
+    want = similarity.episode_scores_plain(q, s, m, metric=metric)
+    torch.testing.assert_close(got, want, rtol=0.0 if metric == "cosine"
+                               else 1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean"])
+def test_episode_scores_embodied_masked(dev, metric):
+    """The embodied eval's support (1 real + 5 virtual members a class,
+    some masked: three support tiles, classes across tile edges)."""
+    n, members = 5, 6
+    # More support rows than one tile of the kernel (kST = 10 in
+    # csrc/episode_scores.cu), so the member max crosses tile edges.
+    assert n * members > 10
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _features(dev, gen, 64, 5, 2048)
+    s = _features(dev, gen, 64, n, members, 2048)
+    m = (torch.rand(64, n, members, generator=gen, device=dev) > 0.4).float()
+    m[..., 0] = 1
+    got = similarity.episode_scores_cuda(q, s, m, metric=metric)
+    want = similarity.episode_scores_plain(q, s, m, metric=metric)
+    torch.testing.assert_close(got, want, rtol=0.0 if metric == "cosine"
+                               else 1e-6, atol=1e-5)
+
+
+def test_episode_scores_deterministic(dev):
+    """Fixed-order reductions: the same bits run to run."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = _features(dev, gen, 64, 5, 2048)
+    for m_ in (1, 6):
+        s = _features(dev, gen, 64, 5, m_, 2048)
+        m = torch.ones(64, 5, m_, device=dev)
+        for metric in ("cosine", "euclidean"):
+            a = similarity.episode_scores_cuda(q, s, m, metric=metric)
+            b = similarity.episode_scores_cuda(q, s, m, metric=metric)
+            assert torch.equal(a, b)
+
+
 def test_folded_forward_gpu_matches_cpu(dev):
     """The whole folded forward (cuDNN + the stack kernel) in f32 on the
     GPU against the same forward on the CPU."""
@@ -369,6 +420,104 @@ def test_int8_stack_deterministic(dev):
     a = bi.bottleneck_stack_int8_cuda(x, blocks, h=14, w=14)
     b = bi.bottleneck_stack_int8_cuda(x, blocks, h=14, w=14)
     assert torch.equal(a, b)
+
+
+def _int8_stage1(dev, seed=7):
+    """ResNet-50 stage 1 quantized as the int8 path quantizes it (seeded
+    folded convs, per-channel weight scales, per-site activation maxima),
+    packed for the kernel on dev."""
+    gen = torch.Generator().manual_seed(seed)
+    amax = {"conv1": 4.0, "conv2": 3.0, "conv3": 3.0, "downsample": 4.0}
+    blocks = []
+    for i in range(3):
+        ci = 64 if i == 0 else 256
+
+        def conv(o, cin, k):
+            return {"weight": torch.randn(o, cin, k, k, generator=gen)
+                    / (cin * k * k) ** 0.5,
+                    "bias": 0.1 * torch.randn(o, generator=gen)}
+
+        fb = {"conv1": conv(64, ci, 1), "conv2": conv(64, 64, 3),
+              "conv3": conv(256, 64, 1)}
+        if i == 0:
+            fb["downsample"] = conv(256, ci, 1)
+        q = {k: tq.quantize_conv(v, amax[k]) for k, v in fb.items()}
+        blocks.append({k: v.to(dev) for k, v in
+                       bi.pack_bottleneck_params_int8(q).items()})
+    return blocks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stack_resnet50_stage1(dev, dtype):
+    """Kernel 7 at ResNet-50 stage 1's full channels and map (8 images):
+    the entry block's 16-row tiles end in a ragged one of 8 rows."""
+    blocks = _int8_stage1(dev)
+    assert 56 % bi.int8_tile_plan(56, 56, 64, 64, 256, 8)["tile_rows"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.relu(torch.randn(8, 56 * 56, 64, generator=gen,
+                               device=dev)).to(dtype)
+    before = bi.fused_bottleneck_stack_int8.launches
+    got = bi.fused_bottleneck_stack_int8(x, blocks, h=56, w=56)
+    assert bi.fused_bottleneck_stack_int8.launches == before + 3
+    want = bi.bottleneck_stack_int8_plain(x, blocks, h=56, w=56)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert float((want != 0).float().mean()) > 0.3
+
+
+# (h, w, cin, cmid, cout, n): ragged last row tiles (entry block 13 = 8 +
+# 5 rows with N passes of 256, and 30 = 20 + 10), and several images per
+# block with a ragged last image group (7 = 5 + 2, then 2 + 2 + 2 + 1).
+INT8_RAGGED = [(13, 56, 256, 64, 256, 2), (30, 44, 64, 64, 256, 2),
+               (14, 14, 64, 64, 256, 7)]
+
+
+@pytest.mark.parametrize("h,w,cin,cmid,cout,n", INT8_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stack_ragged_tiles(dev, h, w, cin, cmid, cout, n, dtype):
+    rng = np.random.default_rng(h + w + n)
+    blocks = _int8_blocks(rng, cin, cmid, cout, 2, dev, proj=cin != cout)
+    plans = [bi.int8_tile_plan(h, w, c, cmid, cout, n) for c in (cin, cout)]
+    assert any(h % p["tile_rows"] for p in plans) or \
+        any(1 < p["images"] and n % p["images"] for p in plans)
+    x = torch.from_numpy((rng.standard_normal((n, h * w, cin)) * 0.7).astype(
+        np.float32)).to(dev, dtype)
+    got = bi.bottleneck_stack_int8_cuda(x, blocks, h=h, w=w)
+    want = bi.bottleneck_stack_int8_plain(x, blocks, h=h, w=w)
+    assert torch.equal(got, want)
+
+
+# Channels the 16-byte paths do not take: cin % 8 != 0 (scalar staging),
+# cout % 8 != 0 (two channels a lane), odd cout (single stores).
+INT8_ODD = [(5, 9, 20, 12, 36, 3), (4, 6, 21, 10, 33, 2)]
+
+
+@pytest.mark.parametrize("h,w,cin,cmid,cout,n", INT8_ODD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_stack_odd_channels(dev, h, w, cin, cmid, cout, n, dtype):
+    rng = np.random.default_rng(cin * cout)
+    blocks = _int8_blocks(rng, cin, cmid, cout, 2, dev, proj=True)
+    x = torch.from_numpy((rng.standard_normal((n, h * w, cin)) * 0.7).astype(
+        np.float32)).to(dev, dtype)
+    got = bi.bottleneck_stack_int8_cuda(x, blocks, h=h, w=w)
+    want = bi.bottleneck_stack_int8_plain(x, blocks, h=h, w=w)
+    assert torch.equal(got, want)
+
+
+def test_int8_smem_matches_plan(dev):
+    """The kernel's shared-memory layout is the planner's at every block
+    shape the int8 tests launch and at ResNet-50 stage 1."""
+    lib = bi._lib()
+    shapes = [(56, 56, 64, 64, 256, 256), (56, 56, 256, 64, 256, 256)]
+    shapes += [(h, w, c, cmid, cout, 3) for h, w, cin, cmid, cout, _ in
+               INT8_SHAPES for c in {cin, cout}]
+    shapes += [(h, w, c, cmid, cout, n) for h, w, cin, cmid, cout, n in
+               INT8_RAGGED + INT8_ODD for c in {cin, cout}]
+    for h, w, c, cmid, cout, n in shapes:
+        for proj in {c != cout, True}:
+            p = bi.int8_tile_plan(h, w, c, cmid, cout, n, proj)
+            assert lib.bottleneck_int8_smem_bytes(
+                h, w, p["cinp"], p["cmidp"], p["tile_rows"], p["images"],
+                p["wn1"], p["wn3"], int(proj)) == p["smem"]
 
 
 def test_int_mm_padding(dev):
