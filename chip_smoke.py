@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
 2. build the seven CUDA kernel sources from ``eov_tpu_torch/csrc/`` (one
    nvcc per source, in parallel) and time the build;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (kernel 2 also at the stride-1 tails of ResNet-50
+   main paths' shapes (kernel 1 bit for bit in bf16 and f32 at 256 frames
+   of 256x320 and of 256x341, the UCF101 frame stored at short side 256;
+   kernel 2 also at the stride-1 tails of ResNet-50
    stages 2-4, each block within 2 bf16 ulps of the stream), and time
    kernel, plain version and, where PyTorch
    computes the function with library calls, those (CUDA events, median of
@@ -28,6 +30,14 @@ Phases (any failure exits non-zero):
    K=8, 32 clips per batch, bf16 -> ``extract_features`` into a store ->
    600 5-way 1-shot episodes with ``evaluate``; kernels 1-3 must each
    launch, and the results are checked against the port's plain CPU path;
+   then the real-data path: 12 x 6 synthetic clips at UCF101's 240x320,
+   packed by ``tools/pack_eovc`` at short side 256 into two RAW EOVC
+   shards (256x341) -> ``cli extract --dataset eovc --preset tpu_batched``
+   (the native loader where it builds, else the python reader; the one
+   used is printed) -> ``cli eval``; kernel 1 must launch on those frames,
+   the stored features agree with the CPU f32 path (cosine >= 0.99), and
+   a ``--class-split`` extract holds only that split's classes; the wall
+   rate, host read time and device idle share are printed;
 5. run the int8 + embodied path through the CLI: ``extract --quant int8``
    of the same set (kernels 1 and 7), ``extract --quant int8
    --synthetic-virtual`` of a virtual set of the same classes,
@@ -148,37 +158,56 @@ def rel_ok(got, want, rtol, atol) -> tuple[bool, float]:
 
 # --------------------------------------------------------------- kernels
 
+CROP_SHAPES = ((256, 320), (256, 341))  # the synthetic main path; UCF101
+                                        # frames stored at short side 256
+
+
 def check_crop(dev):
+    """Kernel 1 at 256 frames of each of CROP_SHAPES, bf16 and f32, bit for
+    bit. The row's ms / plain_ms / bound_ms are the 256x320 ones (the
+    earlier slices' shape); ``shapes`` holds both."""
     from eov_tpu_torch.ops import crop_normalize as cn
 
+    n, shapes = 256, {}
     g = torch.Generator(device=dev).manual_seed(1)
-    frames = torch.randint(0, 256, (32 * 8, 256, 320, 3), generator=g,
-                           device=dev, dtype=torch.uint8)
-    got = cn.crop_normalize_cuda(frames, crop=224, dtype=torch.bfloat16)
-    want = cn.crop_normalize_plain(frames, crop=224, dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-        fail("crop_normalize kernel is not bitwise equal to its plain version")
-    got32 = cn.crop_normalize_cuda(frames[:8], crop=224, dtype=torch.float32)
-    want32 = cn.crop_normalize_plain(frames[:8], crop=224,
-                                     dtype=torch.float32)
-    if not torch.equal(got32.view(torch.int32), want32.view(torch.int32)):
-        fail("crop_normalize kernel (f32) is not bitwise equal")
-    n = frames.shape[0]
-    b, by = bound(n * 224 * 224 * 3 * (1 + 2), 2 * n * 224 * 224 * 3,
-                  torch.float32)
+    for h, w in CROP_SHAPES:
+        frames = torch.randint(0, 256, (n, h, w, 3), generator=g, device=dev,
+                               dtype=torch.uint8)
+        err = 0.0
+        for dt, iv in ((torch.bfloat16, torch.int16),
+                       (torch.float32, torch.int32)):
+            got = cn.crop_normalize_cuda(frames, crop=224, dtype=dt)
+            want = cn.crop_normalize_plain(frames, crop=224, dtype=dt)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(iv), want.view(iv)):
+                fail(f"crop_normalize kernel ({dt}) is not bitwise equal to "
+                     f"its plain version at {h}x{w}")
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        b, by = bound(n * 224 * 224 * 3 * (1 + 2), 2 * n * 224 * 224 * 3,
+                      torch.float32)
+        shapes[f"{h}x{w}"] = {
+            "ms": cuda_ms(lambda: cn.crop_normalize_cuda(frames, crop=224),
+                          inner=10, graph=True),
+            "plain_ms": cuda_ms(
+                lambda: cn.crop_normalize_plain(frames, crop=224),
+                inner=10, graph=True),
+            "bound_ms": b, "bound_by": by, "max_abs_err": err}
+        del frames
+    first = shapes["256x320"]
     return {
         "name": "crop_normalize", "route": "cuda",
         "source": "eov_tpu_torch/csrc/crop_normalize.cu",
         "replaces": "eov_tpu/ops/pallas_preprocess.py:52",
-        "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "tolerance": "bitwise",
-        "ms": cuda_ms(lambda: cn.crop_normalize_cuda(frames, crop=224),
-                      inner=10, graph=True),
-        "plain_ms": cuda_ms(lambda: cn.crop_normalize_plain(frames, crop=224),
-                            inner=10, graph=True),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": f"u8 [{n}, 256, 320, 3] -> bf16 [{n}, 224, 224, 3]",
+        "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+        "tolerance": "bitwise (bf16 and f32)",
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None, "shapes": shapes,
+        "note": "256x341: " + ", ".join(
+            f"{k} {v}" for k, v in shapes["256x341"].items()
+            if k in ("ms", "plain_ms", "bound_ms")),
+        "shape": f"u8 [{n}, 256, 320, 3] and [{n}, 256, 341, 3] -> bf16 "
+                 f"[{n}, 224, 224, 3]",
     }
 
 
@@ -1420,6 +1449,150 @@ def main_path(dev, gpu):
     }, str(res), batch
 
 
+# ------------------------------------------------------------ real data
+
+def real_data_path(dev, gpu):
+    """The real-data path: UCF101-sized frames (240x320, 12 classes x 6
+    clips) packed by the port's pack_eovc at short side 256 into two RAW
+    shards (256x341 frames) -> ``cli extract --dataset eovc --preset
+    tpu_batched`` (kernels 1-3; kernel 1 on the 341-wide frames) -> ``cli
+    eval``; the stored features against the CPU f32 path on the same
+    packed frames, and a ``--class-split`` extract."""
+    from eov_tpu_torch.data import class_splits
+    from eov_tpu_torch.data.datasets import (EovcVideoDataset,
+                                             SyntheticVideoDataset)
+    from eov_tpu_torch.data.segments import center_indices_np
+    from eov_tpu_torch.data.store import FeatureStore, MemoryFeatureStore
+    from eov_tpu_torch.extract import (ExtractConfig, extract_features,
+                                       make_feature_fn)
+    from eov_tpu_torch.models.resnet import random_state_dict
+    from eov_tpu_torch.ops import bottleneck, crop_normalize, similarity
+    from eov_tpu_torch.runtime import native
+    from eov_tpu_torch.tools.pack_eovc import pack
+
+    work = os.path.join(WORK, "real")
+    shards = os.path.join(work, "shards")
+    src = SyntheticVideoDataset(n_classes=12, clips_per_class=6, height=240,
+                                width=320, seed=0)
+    t0 = time.perf_counter()
+    pack(src, shards, storage_short_side=256, clips_per_shard=36)
+    pack_s = time.perf_counter() - t0
+    ds = EovcVideoDataset(shards)
+    frame_hw = ds.get_frames(ds.records[0], [0]).shape[1:3]
+    n_shards = len([f for f in os.listdir(shards) if f.endswith(".eovc")])
+    if frame_hw != (256, 341) or n_shards != 2 or len(ds.records) != 72:
+        fail(f"packed set: frames {frame_hw}, {n_shards} shards, "
+             f"{len(ds.records)} clips; want 256x341, 2, 72")
+    if ds.class_names != src.class_names:
+        fail("the classes.json sidecar did not carry the class names")
+    err = native.build_error()
+    reader = {"reader": "native" if ds.is_native else "python",
+              "native_build_error": err.splitlines()[0] if err else None}
+    print(json.dumps(reader), flush=True)
+
+    kernels = {"crop_normalize": crop_normalize.crop_normalize,
+               "bottleneck_stack": bottleneck.fused_bottleneck_stack,
+               "episode_scores": similarity.episode_class_scores}
+    store = os.path.join(work, "store")
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = _quiet_cli(["extract", "--dataset", "eovc", "--root", shards,
+                      "--preset", "tpu_batched", "--store", store])
+    torch.cuda.synchronize()
+    cli_extract_s = time.perf_counter() - t0
+    extract_launches = {name: k.launches for name, k in kernels.items()}
+    stats = json.loads(out[-1])
+    if stats["extracted"] != 72 or stats["failed"]:
+        fail(f"real-data extraction incomplete: {stats}")
+    acc_line = _quiet_cli(["eval", "--store", store, "--preset",
+                           "tpu_batched"])[-1]
+    launches = {name: k.launches for name, k in kernels.items()}
+    zero = [n for n, c in launches.items() if c == 0]
+    if zero or extract_launches["crop_normalize"] == 0:
+        fail(f"kernels never launched on the real-data path: {zero}, "
+             f"kernel 1 in extract {extract_launches['crop_normalize']}")
+    if not acc_line.startswith("accuracy:"):
+        fail(f"eval over the real-data store printed {acc_line!r}")
+
+    # The stored bf16 features against the CPU f32 path on the same packed
+    # frames (the main path's bar).
+    weights = random_state_dict("resnet50", seed=0)  # the CLI's --seed 0
+    recs = ds.records[:2]
+    idx = np.stack([center_indices_np(r.num_frames, 8) for r in recs])
+    clips = ds.get_batch(recs, idx)
+    cpu = make_feature_fn(weights, ExtractConfig(
+        num_segments=8, compute_dtype="float32"), "cpu")(
+        torch.from_numpy(clips))
+    saved = FeatureStore(store).load_all()
+    stored = torch.from_numpy(np.stack([saved[r.video_id][0] for r in recs]))
+    cos16 = float(torch.nn.functional.cosine_similarity(
+        stored, cpu, dim=1).min())
+    if cos16 < 0.99:
+        fail(f"real-data features disagree with the CPU f32 path: cosine "
+             f"{cos16}")
+
+    # A class-split extract holds only that split's classes.
+    split = class_splits.make_class_split(ds.class_names, 8, 2, 2, seed=0)
+    split_path = os.path.join(work, "split.json")
+    class_splits.save_class_split(split_path, split)
+    test_store = os.path.join(work, "store_test")
+    _quiet_cli(["extract", "--dataset", "eovc", "--root", shards,
+                "--preset", "tpu_batched", "--store", test_store,
+                "--class-split", f"{split_path}:test"])
+    keep = split["class_splits"]["test"]
+    got = FeatureStore(test_store)
+    want_ids = {r.video_id for r in ds.records
+                if ds.class_names[r.label] in keep}
+    if got.class_names != keep or set(got.load_all()) != want_ids:
+        fail(f"--class-split extract holds {got.class_names}, "
+             f"{len(got.load_all())} clips; want {keep}, {len(want_ids)}")
+
+    # Where the time goes, timed as main_path times it: extract_features
+    # with the feature program built beforehand, the pooled host read
+    # alone (as extract batches it), and the feature program on one
+    # 32-clip batch of these frames.
+    cfg = ExtractConfig(num_segments=8, batch_clips=32)
+    feature_fn = make_feature_fn(weights, cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = extract_features(ds, weights, MemoryFeatureStore(
+        class_names=ds.class_names), cfg, feature_fn=feature_fn, device=dev)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    if timed["extracted"] != 72:
+        fail(f"timed real-data extraction incomplete: {timed}")
+    order = list(ds.records)
+    t0 = time.perf_counter()
+    for b0 in range(0, len(order), 32):
+        part = order[b0:b0 + 32]
+        ds.get_batch(part, np.stack([center_indices_np(r.num_frames, 8)
+                                     for r in part]))
+    decode_s = time.perf_counter() - t0
+    batch = torch.from_numpy(ds.get_batch(order[:32], np.stack(
+        [center_indices_np(r.num_frames, 8) for r in order[:32]]))).to(dev)
+    feat_ms = cuda_ms(lambda: feature_fn(batch), repeats=5, inner=1)
+    device_s = feat_ms / 1e3 * len(order) / 32
+    return {
+        "gpu": gpu, **reader,
+        "frames": f"{frame_hw[0]}x{frame_hw[1]}", "shards": n_shards,
+        "pack_s": pack_s,
+        "clips": stats["extracted"],
+        "extract_s": extract_s,
+        "extract_clips_per_s": stats["extracted"] / extract_s,
+        "cli_extract_s": cli_extract_s,
+        "host_decode_s": decode_s,
+        "device_busy_est_s": device_s,
+        "device_idle_share_est": 1.0 - device_s / extract_s,
+        "feature_program_ms_per_32_clips": feat_ms,
+        "accuracy": acc_line,
+        "launches": launches,
+        "extract_launches": extract_launches,
+        "cosine_vs_cpu_f32_bf16": cos16,
+        "class_split_test_classes": len(keep),
+    }
+
+
 # ------------------------------------------------------ int8 + embodied
 
 def int8_embodied_path(dev, gpu, batch):
@@ -1983,6 +2156,9 @@ def main() -> int:
     print(json.dumps({"main_path": summary}), flush=True)
     print(acc_line, flush=True)
     phase("main_path")
+    print(json.dumps({"real_data_path": real_data_path(dev, gpu)}),
+          flush=True)
+    phase("real_data_path")
     int8 = int8_embodied_path(dev, gpu, batch)
     print(json.dumps({"int8_embodied_path": int8}), flush=True)
     phase("int8_embodied_path")

@@ -3,7 +3,11 @@
 The PyTorch port of ``eov_tpu`` (the JAX/Pallas reference, which stays as
 it is). Modules mirror the reference's names. The paths:
 
-    uint8 clips -> ops.crop_normalize (CUDA kernel 1)
+    data.datasets (synthetic fixtures; EOVC shards through
+    runtime.native or runtime.eovc, packed by tools.pack_eovc; frame
+    folders; video files; data.class_splits) -> uint8 clips, a batch at a
+    time into extract.py's host buffer ring
+                -> ops.crop_normalize (CUDA kernel 1)
                 -> models.folded_infer: BN-folded ResNet, stage 1 through
                    ops.bottleneck (CUDA kernel 2), the rest on cuDNN
                    or, with quant="int8", models.quant_infer: the int8

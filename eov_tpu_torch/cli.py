@@ -31,12 +31,19 @@ torchvision .pth/.pt/.npz state_dict or a train-run directory (the
 checkpoint ``--select latest|best`` names on extract and classify, the
 newest on episode), as the reference's do.
 
+Every command that reads clips takes ``--dataset synthetic|framedir|
+videodir|eovc`` with ``--root``, ``--split`` (TSN txt or split json),
+``--split-name``, ``--class-split JSON[:part]`` (a class-level one-shot
+split, e.g. ``eov_tpu_torch/splits/ucf101_oneshot.json:test``) and, for
+EOVC JPEG shards, ``--jpeg-scale-denom``. ``train --val-class-split``
+scores each epoch on the meta-val classes and records the best in
+``best.json``.
+
 All but store-info run on the GPU (``--device cuda``, the default) and
 refuse to run without one unless ``--device cpu`` is given. Stores are
 interchangeable with the reference package's.
 
-Not ported yet, and refused: ``train --multichip`` (multi-GPU) and
-``train --val-class-split`` (class splits).
+Not ported yet, and refused: ``train --multichip`` (multi-GPU).
 """
 
 from __future__ import annotations
@@ -58,18 +65,78 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="torch device: cuda (default) or cpu")
 
 
-def _load_dataset(args):
-    from eov_tpu_torch.data.datasets import SyntheticVideoDataset
+def _class_split_part(spec: str) -> list[str]:
+    """The classes of a ``--class-split JSON[:part]`` spec (part defaults
+    to 'test')."""
+    from eov_tpu_torch.data import class_splits as cs
 
-    if args.dataset != "synthetic":
-        raise SystemExit(f"dataset {args.dataset!r} is not ported yet "
-                         "(only 'synthetic')")
-    return SyntheticVideoDataset(
-        n_classes=args.synthetic_classes,
-        clips_per_class=args.synthetic_clips,
-        height=args.synthetic_height, width=args.synthetic_width,
-        seed=args.seed, virtual=getattr(args, "synthetic_virtual", False),
-    )
+    path, _, part = spec.partition(":")
+    return cs.load_class_split(path)["class_splits"][part or "test"]
+
+
+def _load_dataset(args):
+    from eov_tpu_torch.data import datasets
+
+    def class_filtered(ds):
+        spec = getattr(args, "class_split", None)
+        if not spec:
+            return ds
+        from eov_tpu_torch.data import class_splits as cs
+
+        return cs.filter_dataset_by_classes(ds, _class_split_part(spec))
+
+    if args.dataset == "synthetic":
+        return class_filtered(datasets.SyntheticVideoDataset(
+            n_classes=args.synthetic_classes,
+            clips_per_class=args.synthetic_clips,
+            height=args.synthetic_height, width=args.synthetic_width,
+            seed=args.seed, virtual=getattr(args, "synthetic_virtual", False),
+        ))
+    if args.dataset == "eovc":
+        if not args.root:
+            raise SystemExit("--root (file or shard dir) required for eovc")
+        names = None
+        if args.split and args.split.endswith(".json"):
+            names = datasets.load_split_json(args.split)["class_names"]
+        return class_filtered(datasets.EovcVideoDataset(
+            args.root, class_names=names,
+            jpeg_scale_denom=args.jpeg_scale_denom))
+    if args.dataset == "videodir":
+        # root/<class>/<video>, or --split lists of (relative path,
+        # num_frames, label) where num_frames <= 0 probes the container.
+        if not args.root:
+            raise SystemExit("--root required for videodir")
+        split = names = only = None
+        if args.split:
+            if args.split.endswith(".json"):
+                meta = datasets.load_split_json(args.split)
+                split = meta["splits"][args.split_name]
+                names = meta["class_names"]
+            else:
+                split = datasets.load_split_txt(args.split)
+        elif getattr(args, "class_split", None):
+            # Discovery opens every container to count its frames: restrict
+            # it to the split's classes up front.
+            only = _class_split_part(args.class_split)
+        return class_filtered(datasets.VideoFileDataset(
+            args.root, split, names, only_classes=only))
+    if args.dataset == "framedir":
+        if not (args.root and args.split):
+            raise SystemExit("--root and --split required for framedir")
+        if args.split.endswith(".json"):
+            meta = datasets.load_split_json(args.split)
+            split = meta["splits"][args.split_name]
+            names = meta["class_names"]
+        else:
+            split = datasets.load_split_txt(args.split)
+            names = [str(i) for i in range(max(s[2] for s in split) + 1)]
+        if getattr(args, "class_split", None):
+            from eov_tpu_torch.data import class_splits as cs
+
+            split, names = cs.filter_split_by_classes(
+                split, names, _class_split_part(args.class_split))
+        return datasets.FrameFolderDataset(args.root, split, names)
+    raise SystemExit(f"unknown dataset {args.dataset}")
 
 
 def _load_weights(args, arch: str):
@@ -456,9 +523,7 @@ def _resolve_ckpt_dir(path: str, select: str = "latest") -> str:
         if not os.path.exists(bj):
             raise SystemExit(
                 f"--select best: no best.json under {path} — train with "
-                "--val-class-split to record per-epoch meta-val accuracy "
-                "(not ported yet: the port records it when run_training is "
-                "given a meta-val dataset)")
+                "--val-class-split to record per-epoch meta-val accuracy")
         with open(bj) as f:
             return os.path.join(path, json.load(f)["dir"])
     return latest_step_dir(path) or path
@@ -596,19 +661,36 @@ def _train_config(args, num_classes: int, num_segments: int):
         seed=args.seed)
 
 
+def _val_split_spec(spec: str) -> str:
+    """A --val-class-split spec with the part defaulting to 'val': the bare
+    'path.json' and 'path.json:' would otherwise take _load_dataset's
+    default 'test' and select models on the meta-test classes."""
+    path, _, part = spec.partition(":")
+    return f"{path}:{part or 'val'}"
+
+
 def cmd_train(args) -> int:
     from eov_tpu_torch.utils.device import resolve_device
 
     if args.multichip:
         raise SystemExit("--multichip: multi-GPU training is not ported yet")
-    if args.val_class_split:
-        raise SystemExit("--val-class-split: class splits are not ported "
-                         "yet")
     device = resolve_device(args.device)
     dataset = _load_dataset(args)
     cfg = _train_config(args, len(dataset.class_names), num_segments=3)
+    # Meta-val for per-epoch one-shot model selection: the same source,
+    # the val class partition (disjoint from the meta-train classes).
+    val_dataset = None
+    if args.val_class_split:
+        spec = _val_split_spec(args.val_class_split)
+        val_dataset = _load_dataset(
+            argparse.Namespace(**{**vars(args), "class_split": spec}))
+    val = {k: v for k, v in (("val_episodes", args.val_episodes),
+                             ("val_n_way", args.val_n_way),
+                             ("val_segments", args.val_segments))
+           if v is not None}
     run_training(cfg, dataset, device=device, epochs=args.epochs,
-                 out=args.out, params=args.params, metrics_path=args.metrics)
+                 out=args.out, params=args.params, metrics_path=args.metrics,
+                 val_dataset=val_dataset, **val)
     return 0
 
 
@@ -639,13 +721,35 @@ def cmd_test(args) -> int:
     return 0
 
 
-def _add_clips(p: argparse.ArgumentParser) -> None:
-    """Dataset and feature-program flags (extract, classify, episode)."""
-    p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
+def _add_dataset(p: argparse.ArgumentParser) -> None:
+    """The dataset flags of every command that reads clips."""
+    p.add_argument("--dataset", default="synthetic",
+                   choices=["synthetic", "framedir", "videodir", "eovc"])
+    p.add_argument("--root", default=None,
+                   help="framedir/videodir root, or an EOVC file or shard "
+                        "directory")
+    p.add_argument("--split", default=None,
+                   help="TSN split txt or split json")
+    p.add_argument("--split-name", default="all",
+                   help="which list of a split json")
+    p.add_argument("--class-split", default=None, dest="class_split",
+                   metavar="JSON[:part]",
+                   help="keep one part of a class split (default part "
+                        "'test'), e.g. eov_tpu_torch/splits/"
+                        "ucf101_oneshot.json:test")
+    p.add_argument("--jpeg-scale-denom", type=int, default=1,
+                   dest="jpeg_scale_denom", choices=[1, 2, 4, 8],
+                   help="eovc jpeg shards: DCT-scaled decode at 1/denom of "
+                        "the storage size (native loader)")
     p.add_argument("--synthetic-classes", type=int, default=10)
     p.add_argument("--synthetic-clips", type=int, default=8)
     p.add_argument("--synthetic-height", type=int, default=128)
     p.add_argument("--synthetic-width", type=int, default=160)
+
+
+def _add_clips(p: argparse.ArgumentParser) -> None:
+    """Dataset and feature-program flags (extract, classify, episode)."""
+    _add_dataset(p)
     p.add_argument("--synthetic-virtual", action="store_true",
                    dest="synthetic_virtual",
                    help="virtual-agent rendering (UnrealAction analog)")
@@ -664,11 +768,7 @@ def _add_clips(p: argparse.ArgumentParser) -> None:
 
 
 def _add_train_common(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
-    p.add_argument("--synthetic-classes", type=int, default=10)
-    p.add_argument("--synthetic-clips", type=int, default=8)
-    p.add_argument("--synthetic-height", type=int, default=128)
-    p.add_argument("--synthetic-width", type=int, default=160)
+    _add_dataset(p)
     p.add_argument("--params", default=None,
                    help="train-run dir, or a torchvision .pth/.pt/.npz")
     p.add_argument("--arch", default=None,
@@ -776,7 +876,19 @@ def main(argv=None) -> int:
                     help="not ported yet (refused)")
     tr.add_argument("--val-class-split", dest="val_class_split",
                     default=None, metavar="JSON[:part]",
-                    help="not ported yet (refused)")
+                    help="meta-val class split (default part 'val'): score "
+                         "each epoch by one-shot episodic accuracy on these "
+                         "held-out classes and record the best checkpoint "
+                         "in best.json")
+    tr.add_argument("--val-episodes", type=int, dest="val_episodes",
+                    default=None,
+                    help="episodes per meta-val pass (default 120)")
+    tr.add_argument("--val-n-way", type=int, dest="val_n_way", default=None,
+                    help="n-way of the meta-val episodes (default 5)")
+    tr.add_argument("--val-segments", type=int, dest="val_segments",
+                    default=None,
+                    help="eval-time TSN K for the meta-val features "
+                         "(default 8, independent of --num-segments)")
     tr.set_defaults(fn=cmd_train)
 
     te = sub.add_parser("test", help="top-1 of a train run's checkpoint")

@@ -24,7 +24,11 @@ Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
   decode thread prepares the next batch while the device computes the
   current one; decode faults are skipped and logged; clips already in the
   store are skipped (resume); the store flushes every ``flush_every``
-  clips.
+  clips. A dataset with a pooled ``get_batch`` (EOVC shards, video files)
+  decodes each batch in one call into a buffer of a process-wide ring
+  (page-locked when the batch goes to the GPU), which returns to the ring
+  once the batch's features have materialized; other datasets, and runs
+  under ``fault_inject``, decode record by record.
 
 Under ``quant="int8"`` the fused stages resolve as the bf16 ones do:
 ``"auto"`` is ``(1,)`` on bottleneck archs, so stage 1 runs through kernel
@@ -49,12 +53,13 @@ import dataclasses
 import logging
 import queue
 import threading
+from collections import OrderedDict
 from typing import Callable
 
 import numpy as np
 import torch
 
-from eov_tpu_torch.data.datasets import VideoDataset
+from eov_tpu_torch.data.datasets import VideoDataset, get_batch_accepts_out
 from eov_tpu_torch.data.segments import center_indices_np
 from eov_tpu_torch.data.store import FeatureStore
 from eov_tpu_torch.models import get_arch
@@ -264,11 +269,60 @@ def make_feature_fn(weights, cfg: ExtractConfig,
     return feature_fn
 
 
+# Process-wide host input-buffer ring for the pooled decode, as the
+# reference keeps it: fresh buffers of more than 32 MB are unmapped on free
+# (glibc), so a new array per batch pays first-touch page faults every
+# step, and a page-locked buffer is costly to allocate. Keyed by batch
+# shape, at most _HOST_BUFS_CAP buffers a shape and _HOST_BUFS_SHAPES
+# shapes (least recently used evicted), locked because the decode thread
+# takes and the caller's thread puts back.
+_HOST_BUFS: "OrderedDict[tuple, list]" = OrderedDict()
+_HOST_BUFS_LOCK = threading.Lock()
+_HOST_BUFS_CAP = 3  # buffers retained per batch shape
+_HOST_BUFS_SHAPES = 4  # distinct shapes retained
+
+
+def _take_buf(shape: tuple):
+    with _HOST_BUFS_LOCK:
+        stack = _HOST_BUFS.get(shape)
+        if not stack:
+            # An empty stack holds no stock but would take an LRU slot.
+            if stack is not None:
+                del _HOST_BUFS[shape]
+            return None
+        _HOST_BUFS.move_to_end(shape)
+        buf = stack.pop()
+        if not stack:
+            del _HOST_BUFS[shape]
+        return buf
+
+
+def _put_buf(buf: np.ndarray) -> None:
+    with _HOST_BUFS_LOCK:
+        stack = _HOST_BUFS.setdefault(buf.shape, [])
+        if len(stack) < _HOST_BUFS_CAP:
+            stack.append(buf)
+        _HOST_BUFS.move_to_end(buf.shape)
+        while len(_HOST_BUFS) > _HOST_BUFS_SHAPES:
+            _HOST_BUFS.popitem(last=False)
+
+
+def _new_buf(shape: tuple, dev: torch.device) -> np.ndarray:
+    """A ring buffer: page-locked once when batches go to the GPU (the
+    array keeps its tensor, and so the page-locked memory, alive)."""
+    if dev.type == "cuda":
+        return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
+    return np.empty(shape, np.uint8)
+
+
 def _host_batch(clips: np.ndarray, dev: torch.device) -> torch.Tensor:
     """The decoded batch as a tensor, page-locked when it is bound for the
-    GPU so the feature program's copy is asynchronous."""
+    GPU so the feature program's copy is asynchronous (a ring buffer
+    already is; anything else is copied once)."""
     t = torch.from_numpy(clips)
-    return t.pin_memory() if dev.type == "cuda" else t
+    if dev.type == "cuda" and not t.is_pinned():
+        t = t.pin_memory()
+    return t
 
 
 def extract_features(
@@ -300,8 +354,69 @@ def extract_features(
     since_flush = 0
     timer = Timer()
 
+    # Pooled decode: one get_batch call per batch. Whether it takes out=
+    # (the buffer ring) is decided up front by its signature; where that
+    # cannot be read (a C callable), the first call probes out= and a
+    # TypeError settles on the out-less form for the rest of the run.
+    can_pool = hasattr(dataset, "get_batch") and not cfg.fault_inject
+    accepts_out = probe_out = False
+    if can_pool:
+        known = get_batch_accepts_out(dataset.get_batch)
+        accepts_out = True if known is None else known
+        probe_out = known is None
+    clip_shape = None  # [K, H, W, 3] of the pooled batches, once seen
+
+    def decode_pooled(batch):
+        """-> (stacked uint8 clips, the ring buffer they are in or None)."""
+        nonlocal accepts_out, probe_out, clip_shape
+        idx = np.stack([center_indices_np(r.num_frames, cfg.num_segments)
+                        for r in batch])
+        buf = None
+        if accepts_out and clip_shape is not None:
+            shape = (len(batch), *clip_shape)
+            buf = _take_buf(shape)
+            if buf is None:
+                buf = _new_buf(shape, dev)
+        try:
+            if not accepts_out:
+                arr = dataset.get_batch(batch, idx)
+            else:
+                try:
+                    arr = dataset.get_batch(batch, idx, out=buf)
+                except TypeError as te:
+                    if not probe_out:
+                        raise  # raised inside an out-accepting loader
+                    probe_out = accepts_out = False
+                    # A TypeError from inside an out-accepting loader reads
+                    # the same as a rejected out=; the warning says which
+                    # was assumed.
+                    log.warning(
+                        "get_batch rejected out= (%s); settling on the "
+                        "out-less pooled form — if this TypeError came "
+                        "from inside an out-accepting loader, the buffer "
+                        "ring is disabled for this run", te)
+                    arr = dataset.get_batch(batch, idx)
+                else:
+                    probe_out = False
+        except BaseException:
+            if buf is not None:
+                _put_buf(buf)
+            raise
+        if buf is not None and arr is not buf:
+            _put_buf(buf)
+            buf = None
+        clip_shape = arr.shape[1:]
+        return arr, buf
+
     def decode(batch):
-        """-> (batch size, [(records, stacked uint8 clips)] by resolution)."""
+        """-> (batch size, [(records, stacked uint8 clips, ring buffer or
+        None)], one group on the pooled path, else one per resolution)."""
+        if can_pool:
+            try:
+                arr, buf = decode_pooled(batch)
+                return len(batch), [(list(batch), arr, buf)]
+            except Exception as e:  # noqa: BLE001 — retried per record
+                log.warning("pooled decode failed (%s); per-record retry", e)
         groups: dict[tuple, tuple[list, list]] = {}
         for rec in batch:
             try:
@@ -318,7 +433,7 @@ def extract_features(
             g = groups.setdefault(clip.shape[1:3], ([], []))
             g[0].append(rec)
             g[1].append(clip)
-        return len(batch), [(recs, np.stack(clips))
+        return len(batch), [(recs, np.stack(clips), None)
                             for recs, clips in groups.values()]
 
     def batches():
@@ -372,9 +487,11 @@ def extract_features(
             stop.set()
             t.join()
 
-    def materialize(recs, feats_dev):
+    def materialize(recs, feats_dev, buf):
         nonlocal since_flush
         feats = feats_dev.cpu().numpy()
+        if buf is not None:  # its batch's copy to the device is done
+            _put_buf(buf)
         for rec, f in zip(recs, feats):
             store.put(rec.video_id, f, rec.label)
         stats["extracted"] += len(recs)
@@ -383,14 +500,14 @@ def extract_features(
             store.flush()
             since_flush = 0
 
-    pending = None  # (records, features on device) of the batch in flight
+    pending = None  # (records, features on device, ring buffer) in flight
     for n_batch, groups in decoded():
         n_ok = 0
-        for recs, clips in groups:
+        for recs, clips, buf in groups:
             feats = feature_fn(_host_batch(clips, dev))  # async on GPU
             if pending is not None:
                 materialize(*pending)  # the previous batch drains meanwhile
-            pending = (recs, feats)
+            pending = (recs, feats, buf)
             n_ok += len(recs)
         metrics.write("extract_batch", n=n_ok, failed=n_batch - n_ok,
                       seconds=timer.lap())

@@ -60,8 +60,8 @@ def _lib():
     lib = _cuda.load("crop_normalize")
     fn = lib.crop_normalize_launch
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i,
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, ctypes.c_ulonglong, p, ll, i, i, i,
                        ctypes.POINTER(ctypes.c_float),
                        ctypes.POINTER(ctypes.c_float), i, p]
         fn.restype = ctypes.c_int
@@ -79,15 +79,14 @@ def crop_normalize_cuda(frames_u8: torch.Tensor, *, crop: int = 224,
         raise ValueError("crop_normalize_cuda needs a contiguous tensor")
     lead = frames_u8.shape[:-3]
     b = frames_u8.numel() // (h * w * 3)
-    if b > 65535:
-        raise ValueError(f"{b} frames per call exceeds the grid limit 65535")
     out = torch.empty((*lead, crop, crop, 3), dtype=dtype,
                       device=frames_u8.device)
-    top, left = (h - crop) // 2, (w - crop) // 2
     scale = (ctypes.c_float * 3)(*NORM_SCALE.tolist())
     bias = (ctypes.c_float * 3)(*NORM_BIAS.tolist())
+    # The kernel takes any base alignment and reads only inside the
+    # tensor's numel() bytes; it centers the crop as center_crop does.
     code = _lib()(
-        _cuda.ptr(frames_u8), _cuda.ptr(out), b, h, w * 3, top, left * 3,
+        _cuda.ptr(frames_u8), frames_u8.numel(), _cuda.ptr(out), b, h, w,
         crop, scale, bias, int(dtype == torch.bfloat16),
         _cuda.stream_ptr(frames_u8.device),
     )

@@ -29,9 +29,31 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("h,w,crop", [(65, 70, 63), (256, 320, 224)])
+@pytest.mark.parametrize("h,w,crop", [(65, 70, 63), (256, 320, 224),
+                                      (256, 341, 224), (256, 340, 224)])
 def test_crop_normalize_bitwise(dev, h, w, crop):
+    """Real frame widths: UCF101 stored at short side 256 is 256x341 (a
+    1023-byte row), Kinetics 256x340; and an odd crop (scalar stores)."""
     f = torch.randint(0, 256, (6, h, w, 3), dtype=torch.uint8, device=dev)
+    for dt, iv in ((torch.float32, torch.int32),
+                   (torch.bfloat16, torch.int16)):
+        got = crop_normalize.crop_normalize_cuda(f, crop=crop, dtype=dt)
+        want = crop_normalize.crop_normalize_plain(f, crop=crop, dtype=dt)
+        assert torch.equal(got.view(iv), want.view(iv))
+
+
+@pytest.mark.parametrize("offset", [1, 7])
+@pytest.mark.parametrize("h,w,crop", [(256, 341, 224), (9, 10, 8)])
+def test_crop_normalize_unaligned_base(dev, offset, h, w, crop):
+    """A contiguous view at an odd storage offset of a flat uint8 buffer:
+    the kernel's 16-byte loads start below the base, and the frames end
+    inside a chunk. A guard byte either side must not leak in (the plain
+    version reads the view alone)."""
+    n = 3
+    flat = torch.randint(0, 256, (n * h * w * 3 + offset + 16,),
+                         dtype=torch.uint8, device=dev)
+    f = flat[offset:offset + n * h * w * 3].view(n, h, w, 3)
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
     for dt, iv in ((torch.float32, torch.int32),
                    (torch.bfloat16, torch.int16)):
         got = crop_normalize.crop_normalize_cuda(f, crop=crop, dtype=dt)
@@ -828,3 +850,39 @@ def test_basic_pool_forward_gpu_matches_cpu(dev):
         want = folded_feature_apply(folded, x, arch=arch,
                                     dtype=torch.float32, **opts)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_pooled_extraction_from_raw_shard(dev, tmp_path):
+    """extract_features over a RAW EOVC shard on the GPU: the pooled path
+    (one get_batch per batch into page-locked ring buffers) gives the
+    per-record path's features, and the ring's buffers are page-locked."""
+    from eov_tpu_torch import extract
+    from eov_tpu_torch.data.datasets import (EovcVideoDataset,
+                                             SyntheticVideoDataset)
+    from eov_tpu_torch.data.store import MemoryFeatureStore
+    from eov_tpu_torch.tools.pack_eovc import pack
+
+    src = SyntheticVideoDataset(n_classes=3, clips_per_class=3, height=48,
+                                width=64, min_frames=8, max_frames=12)
+    pack(src, str(tmp_path / "s.eovc"), storage_short_side=48)
+    ds = EovcVideoDataset(str(tmp_path / "s.eovc"))
+    cfg = extract.ExtractConfig(arch="resnet18", num_segments=3,
+                                batch_clips=4, scale_size=48, crop_size=32)
+    fn = extract.make_feature_fn(random_state_dict("resnet18", seed=0,
+                                                   width=16), cfg, dev)
+    class PerRecord:  # the same dataset without its pooled get_batch
+        records, class_names = ds.records, ds.class_names
+        get_frames = staticmethod(ds.get_frames)
+
+    feats = {}
+    for name, d in (("pooled", ds), ("record", PerRecord())):
+        st = MemoryFeatureStore(class_names=ds.class_names)
+        stats = extract.extract_features(d, None, st, cfg, feature_fn=fn,
+                                         device=dev)
+        assert stats["extracted"] == 9 and stats["failed"] == 0
+        feats[name] = st.load_all()
+    for vid, (f, _) in feats["pooled"].items():
+        assert np.array_equal(f, feats["record"][vid][0]), vid
+    ring = [b for stack in extract._HOST_BUFS.values() for b in stack
+            if b.shape[2:4] == (48, 64)]
+    assert ring and all(torch.from_numpy(b).is_pinned() for b in ring)

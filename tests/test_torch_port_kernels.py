@@ -23,7 +23,7 @@ from eov_tpu_torch.ops import bottleneck, crop_normalize, similarity
 # ------------------------------------------------------------ crop_normalize
 
 @pytest.mark.parametrize("h,w,crop", [(72, 77, 64), (65, 70, 63),
-                                      (64, 80, 64)])
+                                      (64, 80, 64), (40, 57, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_crop_normalize_bitwise_vs_pallas(h, w, crop, dtype):
     """Odd sizes, W*3 not a multiple of 16: every bit equal."""

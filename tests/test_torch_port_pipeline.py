@@ -171,13 +171,17 @@ def test_package_imports_no_jax():
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m == 'eov_tpu' or m.startswith(('eov_tpu.', 'jax', 'flax')))]\n"
         "assert not bad, bad\n"
+        "new = {'eov_tpu_torch.runtime.eovc', 'eov_tpu_torch.runtime.native', "
+        "'eov_tpu_torch.data.class_splits', 'eov_tpu_torch.data.datasets', "
+        "'eov_tpu_torch.tools.pack_eovc'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 36
     import re
 
     pat = re.compile(r"^\s*(from|import)\s+(eov_tpu|jax|flax)(\.|\s|$)",
