@@ -57,7 +57,18 @@ Phases (any failure exits non-zero):
 7. one f32 train step pair on the GPU (kernels 8 and 9, cuDNN
    deterministic) against the same two steps on the CPU (plain versions):
    loss, parameters and the stem BN statistics must agree;
-8. print the ``kernels`` JSON line, the card line, and last
+8. the bench path: the port's four benches (``eov_tpu_torch/bench/``:
+   features at 256x320 x 32 clips and at their 224x224 default, train,
+   eval, e2e) in-process at short windows, each JSON line printed beside
+   the card; every value > 0, the feature and train benches' MFU in (0,
+   1.05], the feature bench at 256x320 x 32 clips within 15% of phase 4's
+   feature program time, the e2e bench's extracted count equal to its
+   records, and kernels 1, 2, 3, 8 and 9 launched there; then the
+   256x320 feature bench once more under ``EOV_BENCH_TRACE`` (its slowdown
+   and the steady-state summary printed) and ``cli extract --trace`` of 8
+   clips, each summarized by ``tools/profile_summary`` (head row and top
+   five ops printed);
+9. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds kernel 6 (the stem max-pool) equal to its plain
@@ -2064,6 +2075,134 @@ def train_path(dev, gpu):
     }
 
 
+# ------------------------------------------------------------ bench path
+
+def _bench_line(main, env: dict) -> dict:
+    """Run a bench's ``main()`` in-process under ``env``; its one JSON
+    line (anything else on stdout fails)."""
+    import contextlib
+    import io
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        fail(f"a bench printed {len(lines)} lines, not one: {lines}")
+    return json.loads(lines[0])
+
+
+# (name, bench module, knobs): short windows; the feature bench at the
+# main path's 256x320 and 32 clips (held against its feature program time),
+# and at its own defaults (224x224 frames, normalize only, 64 clips).
+BENCH_RUNS = (
+    ("features_256x320", "features",
+     {"EOV_BENCH_FRAME_HW": "256x320", "EOV_BENCH_SCALE": "256",
+      "EOV_BENCH_BATCH": "32", "EOV_BENCH_WINDOW": "8",
+      "EOV_BENCH_ITERS": "3", "EOV_BENCH_REPEATS": "3"}),
+    ("features_224x224", "features",
+     {"EOV_BENCH_WINDOW": "8", "EOV_BENCH_ITERS": "3",
+      "EOV_BENCH_REPEATS": "3"}),
+    ("train", "train", {"EOV_TRAIN_WINDOW": "4", "EOV_TRAIN_ITERS": "3"}),
+    ("eval", "eval", {"EOV_EVAL_WINDOW": "32", "EOV_EVAL_ITERS": "3"}),
+    ("e2e", "e2e", {"EOV_E2E_CLIPS": "192"}),
+)
+
+
+def bench_path(dev, gpu, feature_ms_32: float):
+    """The four benches in-process at short windows (each JSON line printed
+    beside the card), their checks, and one ``--trace`` of a small
+    ``extract`` read back by ``tools/profile_summary``."""
+    import importlib
+
+    from eov_tpu_torch.ops import (bottleneck, bottleneck_train,
+                                   crop_normalize, similarity)
+    from eov_tpu_torch.tools.profile_summary import summarize
+
+    kernels = {"crop_normalize": crop_normalize.crop_normalize,
+               "bottleneck_stack": bottleneck.fused_bottleneck_stack,
+               "episode_scores": similarity.episode_class_scores,
+               "bottleneck_train_fwd": bottleneck_train.train_stack_forward,
+               "bottleneck_train_bwd": bottleneck_train.train_stack_backward}
+    for k in kernels.values():
+        k.launches = 0
+    lines = {}
+    for name, module, env in BENCH_RUNS:
+        main = importlib.import_module(f"eov_tpu_torch.bench.{module}").main
+        t0 = time.perf_counter()
+        line = _bench_line(main, {"EOV_BENCH_DEVICE": "cuda", **env})
+        print(json.dumps({"bench": name, "card": gpu,
+                          "s": time.perf_counter() - t0, **line}),
+              flush=True)
+        lines[name] = line
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    bad = [n for n, line in lines.items() if not line["value"] > 0]
+    if bad:
+        fail(f"bench values not > 0: {bad}")
+    for name in ("features_256x320", "features_224x224", "train"):
+        mfu = lines[name]["detail"]["mfu"]
+        if mfu is None or not 0.0 < mfu <= 1.05:
+            fail(f"{name} bench mfu {mfu} outside (0, 1.05]")
+    bench_ms = lines["features_256x320"]["detail"]["median_step_s"] * 1e3
+    rel = abs(bench_ms - feature_ms_32) / feature_ms_32
+    if rel > 0.15:
+        fail(f"feature bench at 256x320 x 32 clips reads {bench_ms:.3f} ms a "
+             f"step, {rel:.1%} from the main path's feature program "
+             f"({feature_ms_32:.3f} ms); bar 15%")
+    e2e = lines["e2e"]["detail"]
+    if e2e["extracted"] != e2e["clips"]:
+        fail(f"e2e bench extracted {e2e['extracted']} of {e2e['clips']}")
+    zero = [n for n, c in launches.items() if c == 0]
+    if zero:
+        fail(f"kernels never launched on the bench path: {zero}")
+
+    # The feature bench again under EOV_BENCH_TRACE: what tracing costs,
+    # and where the feature program's device time goes in steady state.
+    bdir = os.path.join(WORK, "trace_bench")
+    shutil.rmtree(bdir, ignore_errors=True)
+    from eov_tpu_torch.bench import features
+
+    traced = _bench_line(features.main, {"EOV_BENCH_DEVICE": "cuda",
+                                         **dict(BENCH_RUNS[0][2]),
+                                         "EOV_BENCH_TRACE": bdir})
+    print(json.dumps({"bench": "features_256x320_traced", "card": gpu,
+                      **traced}), flush=True)
+    bench_rows = summarize(bdir, top=5)
+
+    # One traced CLI run, summarized.
+    tdir = os.path.join(WORK, "trace_extract")
+    shutil.rmtree(tdir, ignore_errors=True)
+    _quiet_cli(["extract", "--trace", tdir, "--device", "cuda",
+                "--preset", "tpu_batched", "--store",
+                os.path.join(WORK, "trace_store"), "--synthetic-classes", "4",
+                "--synthetic-clips", "2", "--synthetic-height", "256",
+                "--synthetic-width", "320", "--batch", "8"])
+    rows = summarize(tdir, top=5)
+    if rows[0]["device"] != "cuda" or not rows[0]["device_busy_us"] > 0:
+        fail(f"trace summary of the traced extract is not a device one: "
+             f"{rows[0]}")
+    return {"launches": launches,
+            "traced_feature_bench_slowdown": (
+                lines["features_256x320"]["value"] / traced["value"] - 1.0),
+            "traced_feature_bench_summary_head": bench_rows[0],
+            "traced_feature_bench_top5": bench_rows[1:],
+            "feature_bench_vs_main_path_rel": rel,
+            "feature_bench_ms_256x320": bench_ms,
+            "main_path_feature_program_ms": feature_ms_32,
+            "trace_summary_head": rows[0],
+            "trace_summary_top5": rows[1:]}
+
+
 def gpu_vs_cpu_step(dev):
     """Two f32 steps (fused: kernels 8/9 on the GPU, plain on the CPU), same
     weights and keys: loss rel 1e-4, params atol 1e-4, stem BN stats atol
@@ -2172,6 +2311,9 @@ def main() -> int:
     print(json.dumps({"gpu_vs_cpu_f32_train_step": gpu_vs_cpu_step(dev)}),
           flush=True)
     phase("gpu_vs_cpu_step")
+    print(json.dumps({"bench_path": bench_path(
+        dev, gpu, summary["feature_program_ms_per_32_clips"])}), flush=True)
+    phase("bench_path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     new = ("basic_stack", "maxpool_s2", "pool_bottleneck_stack")

@@ -1,5 +1,5 @@
 """Command line: ``python -m eov_tpu_torch.cli {extract,eval,classify,
-episode,store-info,train,test}``.
+episode,store-info,train,test,fixtures,presets,bench}``.
 
 Counterpart of ``eov_tpu/cli.py``'s commands of the same names:
 
@@ -7,12 +7,17 @@ Counterpart of ``eov_tpu/cli.py``'s commands of the same names:
                  ``--quant int8`` extracts with the int8 forward and records
                  its calibration (``--quant-calib synthetic|dataset``) in
                  the store; ``--pallas-pool on|fused`` runs the stem pool
-                 through kernel 6, or inside the stage-1 stack (kernel 5)
+                 through kernel 6, or inside the stage-1 stack (kernel 5);
+                 ``--fused-group N`` is accepted and ignored (a TPU grid
+                 knob of the reference, bit-identical for every N)
     eval       — seeded N-way K-shot episodes over a store, mean ± 95% CI;
                  ``--embodied --virtual-store S`` (or the
                  ``kinetics_embodied`` preset) adds S's virtual clips to
-                 each class's support; the last line printed is
-                 ``accuracy: MM.MM% +/- C.CC%``
+                 each class's support; ``--matcher auto|xla|pallas``
+                 (kernel 3 on the GPU | the plain version | kernel 3,
+                 refused on the CPU); ``--per-episode-out FILE`` writes the
+                 per-episode accuracies for ``tools/compare_eval.py``; the
+                 last line printed is ``accuracy: MM.MM% +/- C.CC%``
     classify   — featurize new clips and assign each the support store's
                  best class (one JSON line per clip); queries go through
                  the store's recorded precision and int8 calibration
@@ -25,6 +30,11 @@ Counterpart of ``eov_tpu/cli.py``'s commands of the same names:
     test       — video-level top-1 of a train run's checkpoint (``--params
                  <run dir>``, ``--select latest|best``); the last line
                  printed is ``{"top1": ..., "n": ...}``
+    fixtures   — write the synthetic dataset as JPEG frame folders and a
+                 ``split.json`` under ``--root`` (needs PIL)
+    presets    — list the config presets (``--verbose``: their configs)
+    bench      — the headline feature bench (``bench/features.py``, one
+                 JSON line; ``EOV_BENCH_*`` knobs)
 
 ``extract``, ``classify`` and ``episode`` take ``--params`` as a
 torchvision .pth/.pt/.npz state_dict or a train-run directory (the
@@ -39,9 +49,17 @@ EOVC JPEG shards, ``--jpeg-scale-denom``. ``train --val-class-split``
 scores each epoch on the meta-val classes and records the best in
 ``best.json``.
 
-All but store-info run on the GPU (``--device cuda``, the default) and
-refuse to run without one unless ``--device cpu`` is given. Stores are
-interchangeable with the reference package's.
+Every command takes ``--trace DIR`` (a ``torch.profiler`` trace of the
+command and its ``trace_meta.json``, read by ``tools/profile_summary.py``),
+``--debug-nans`` (every output — features, scores, the train loss and
+gradients — is checked finite and a NaN or infinity raises, naming the
+tensor; ``train`` also runs under autograd's anomaly detection) and
+``--platform cpu|cuda|gpu`` (sets ``--device``; ``tpu`` is refused).
+
+extract, eval, classify, episode, train, test and bench run on the GPU
+(``--device cuda``, the default) and refuse to run without one unless
+``--device cpu`` is given. Stores are interchangeable with the reference
+package's.
 
 Not ported yet, and refused: ``train --multichip`` (multi-GPU).
 """
@@ -53,6 +71,32 @@ import dataclasses
 import json
 import os
 import sys
+
+
+def _add_global(p: argparse.ArgumentParser) -> None:
+    """The flags every command takes."""
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the command under "
+                        "DIR (tools/profile_summary.py reads it)")
+    p.add_argument("--debug-nans", action="store_true", dest="debug_nans",
+                   help="check every output finite; a NaN or inf raises")
+    p.add_argument("--platform", default=None, metavar="{cpu,cuda,gpu}",
+                   help="device to run on (sets --device)")
+
+
+def _platform_device(args) -> None:
+    """``--platform`` onto ``--device``; anything but cpu/cuda/gpu is
+    refused."""
+    plat = args.platform
+    if plat is None:
+        return
+    if plat == "tpu":
+        raise SystemExit("--platform tpu: eov_tpu_torch runs on an NVIDIA "
+                         "GPU (cuda) or the CPU; the TPU program is the "
+                         "eov_tpu package")
+    if plat not in ("cpu", "cuda", "gpu"):
+        raise SystemExit(f"--platform {plat!r}: expected cpu, cuda or gpu")
+    args.device = "cuda" if plat == "gpu" else plat
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -177,6 +221,13 @@ def _fused_stages(spec: str):
             "list like '1' / '1,2'") from None
 
 
+def _positive_int(s: str) -> int:
+    v = int(s)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"expected a positive int, got {s}")
+    return v
+
+
 def _extract_config(args):
     """The preset's ExtractConfig with the command's overrides."""
     from eov_tpu_torch.config import get_preset
@@ -188,6 +239,8 @@ def _extract_config(args):
         ("fused_stages", getattr(args, "fused_stages", None)),
         ("scale_size", args.scale_size), ("crop_size", args.crop_size),
     ) if v is not None}
+    if getattr(args, "fused_group", None) is not None:
+        overrides["fused_group"] = args.fused_group
     quant = getattr(args, "quant", None)
     if quant is not None:
         overrides["quant"] = None if quant == "off" else quant
@@ -256,7 +309,7 @@ def cmd_eval(args) -> int:
     preset = get_preset(args.preset)
     overrides = {f: getattr(args, f) for f in (
         "n_way", "k_shot", "n_query", "n_episodes", "metric", "fusion",
-        "seed") if getattr(args, f) is not None}
+        "matcher", "seed") if getattr(args, f) is not None}
     if args.embodied:
         overrides["embodied"] = True
     cfg = dataclasses.replace(preset.eval, **overrides)
@@ -285,13 +338,16 @@ def cmd_eval(args) -> int:
     metrics = MetricsWriter(args.metrics)
     metrics.write("config", command="eval", config=resolved_dict(cfg),
                   device=str(device))
-    res = evaluate(table, cfg, virtual=virtual)
+    try:
+        res = evaluate(table, cfg, virtual=virtual)
+    except ValueError as e:  # e.g. --matcher pallas with --device cpu
+        raise SystemExit(str(e)) from None
     metrics.write("eval_result", mean_acc=res.mean_acc, ci95=res.ci95,
                   n_episodes=len(res.per_episode))
     metrics.close()
     if args.per_episode_out:
         # Same format as the reference's, for paired comparisons
-        # (eov_tpu/tools/compare_eval.py reads either package's file).
+        # (tools/compare_eval.py of either package reads either's file).
         doc = {
             "config": resolved_dict(cfg),
             "store": args.store,
@@ -347,6 +403,7 @@ def cmd_classify(args) -> int:
     from eov_tpu_torch.data.store import FeatureStore, MemoryFeatureStore
     from eov_tpu_torch.embodied import union_support
     from eov_tpu_torch.extract import extract_features
+    from eov_tpu_torch.utils.debug import check_finite
     from eov_tpu_torch.utils.device import resolve_device
     from eov_tpu_torch.utils.metrics import MetricsWriter
 
@@ -416,7 +473,8 @@ def cmd_classify(args) -> int:
             f"query features are {query.shape[-1]}-d but the support store "
             f"holds {feats.shape[-1]}-d; use the same --arch/--params as "
             "extract")
-    scores = _class_scores(query, feats, mask, metric=metric, fusion=fusion)
+    scores = check_finite("class scores", _class_scores(
+        query, feats, mask, metric=metric, fusion=fusion))
     # A class with no support member (real or virtual) is not assignable.
     eligible = mask.sum(dim=1) > 0
     if not bool(eligible.any()):
@@ -466,6 +524,7 @@ def cmd_episode(args) -> int:
     from eov_tpu_torch.data.segments import center_indices_np
     from eov_tpu_torch.extract import make_feature_fn
     from eov_tpu_torch.ops.similarity import episode_class_scores
+    from eov_tpu_torch.utils.debug import check_finite
     from eov_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -490,8 +549,9 @@ def cmd_episode(args) -> int:
         qry.append(feat(by_class[c][picks[1]]))
     support = torch.stack(sup)[None, :, None]  # [1, N, 1, D]
     mask = torch.ones(support.shape[:3], device=support.device)
-    preds = episode_class_scores(torch.stack(qry)[None], support,
-                                 mask).argmax(dim=-1)[0].cpu().numpy()
+    scores = check_finite("episode scores", episode_class_scores(
+        torch.stack(qry)[None], support, mask))
+    preds = scores.argmax(dim=-1)[0].cpu().numpy()
     truth = list(range(n_way))
     acc = float((preds == np.array(truth)).mean())
     print(json.dumps({"n_way": n_way, "accuracy": acc,
@@ -721,6 +781,60 @@ def cmd_test(args) -> int:
     return 0
 
 
+def cmd_fixtures(args) -> int:
+    """Write the synthetic dataset as JPEG frame folders (``--root/<video
+    id>/img_NNNNN.jpg``, quality 90) and ``--root/split.json``, as the
+    reference's ``fixtures`` writes them."""
+    import numpy as np
+    from PIL import Image  # lazily: the GPU machine has no PIL
+
+    from eov_tpu_torch.data import datasets
+    from eov_tpu_torch.data.fixtures import synthetic_clip
+
+    ds = datasets.SyntheticVideoDataset(
+        n_classes=args.synthetic_classes, clips_per_class=args.synthetic_clips,
+        height=args.synthetic_height, width=args.synthetic_width,
+        seed=args.seed)
+    split = []
+    for rec in ds.records:
+        c, j = ds._meta[rec.video_id]
+        clip = synthetic_clip(c, j, rec.num_frames, ds.height, ds.width)
+        vdir = os.path.join(args.root, rec.video_id)
+        os.makedirs(vdir, exist_ok=True)
+        for t in range(rec.num_frames):
+            Image.fromarray(np.ascontiguousarray(clip[t])).save(
+                os.path.join(vdir, f"img_{t + 1:05d}.jpg"), quality=90)
+        split.append([rec.video_id, rec.num_frames, rec.label])
+    datasets.save_split_json(os.path.join(args.root, "split.json"),
+                             ds.class_names, {"all": split})
+    print(f"wrote {len(split)} videos under {args.root}")
+    return 0
+
+
+def cmd_presets(args) -> int:
+    """One line per preset, name and description; ``--verbose`` adds its
+    eval and extract configs."""
+    from eov_tpu_torch.config import PRESETS, resolved_dict
+
+    for p in PRESETS.values():
+        print(f"{p.name:20s} {p.description}")
+        if args.verbose:
+            print(json.dumps({"eval": resolved_dict(p.eval),
+                              "extract": resolved_dict(p.extract)}, indent=1))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """The feature bench (``bench/features.py``); ``--platform`` sets
+    ``EOV_BENCH_DEVICE``."""
+    from eov_tpu_torch.bench import features
+
+    if getattr(args, "device", None) is not None:
+        os.environ["EOV_BENCH_DEVICE"] = args.device
+    features.main()
+    return 0
+
+
 def _add_dataset(p: argparse.ArgumentParser) -> None:
     """The dataset flags of every command that reads clips."""
     p.add_argument("--dataset", default="synthetic",
@@ -801,6 +915,11 @@ def main(argv=None) -> int:
     ex.add_argument("--fused-stages", type=_fused_stages, default=None,
                     metavar="SPEC",
                     help="'auto' (default), 'none', or a list like '1,2'")
+    ex.add_argument("--fused-group", type=_positive_int, dest="fused_group",
+                    default=None,
+                    help="accepted for the reference's CLI and ignored: "
+                         "images per fused-kernel grid step on a TPU "
+                         "(bit-identical results for every value)")
     ex.add_argument("--pallas-pool", dest="pallas_pool", default=None,
                     choices=("off", "on", "fused"),
                     help="stem max-pool: 'off' = cuDNN (default), 'on' = "
@@ -831,8 +950,14 @@ def main(argv=None) -> int:
     ev.add_argument("--embodied", action="store_true",
                     help="add --virtual-store's clips to each support set")
     ev.add_argument("--virtual-store", dest="virtual_store", default=None)
+    ev.add_argument("--matcher", choices=["auto", "xla", "pallas"],
+                    help="scorer: auto = kernel 3 on the GPU, the plain "
+                         "version on the CPU (default); xla = the plain "
+                         "version; pallas = kernel 3 (GPU only)")
     ev.add_argument("--per-episode-out", dest="per_episode_out",
-                    default=None, metavar="FILE")
+                    default=None, metavar="FILE",
+                    help="per-episode accuracies and the protocol as JSON, "
+                         "for tools/compare_eval.py")
     ev.set_defaults(fn=cmd_eval)
 
     cl = sub.add_parser("classify",
@@ -897,8 +1022,52 @@ def main(argv=None) -> int:
                     help="newest epoch of the run dir, or best.json's")
     te.set_defaults(fn=cmd_test)
 
+    fx = sub.add_parser("fixtures",
+                        help="write the synthetic dataset as JPEG frame "
+                             "folders + split.json")
+    fx.add_argument("--root", required=True, help="output directory")
+    fx.add_argument("--seed", type=int, default=0)
+    fx.add_argument("--synthetic-classes", type=int, default=10)
+    fx.add_argument("--synthetic-clips", type=int, default=8)
+    fx.add_argument("--synthetic-height", type=int, default=128)
+    fx.add_argument("--synthetic-width", type=int, default=160)
+    fx.set_defaults(fn=cmd_fixtures)
+
+    pr = sub.add_parser("presets", help="list the config presets")
+    pr.add_argument("--verbose", action="store_true")
+    pr.set_defaults(fn=cmd_presets)
+
+    be = sub.add_parser("bench", help="the feature bench (one JSON line)")
+    be.set_defaults(fn=cmd_bench)
+
+    for p in sub.choices.values():
+        _add_global(p)
     args = ap.parse_args(argv)
-    return args.fn(args)
+    _platform_device(args)
+    return _run(args)
+
+
+def _run(args) -> int:
+    """The command, under ``--debug-nans`` and ``--trace`` when given."""
+    import contextlib
+
+    import torch
+
+    with contextlib.ExitStack() as stack:
+        if args.debug_nans:
+            from eov_tpu_torch.utils.debug import debug_nans
+
+            stack.enter_context(debug_nans())
+            if args.cmd == "train":
+                stack.enter_context(torch.autograd.set_detect_anomaly(True))
+        if args.trace:
+            from eov_tpu_torch.utils.trace import trace
+
+            device = getattr(args, "device", None)
+            if args.cmd == "bench" and device is None:
+                device = os.environ.get("EOV_BENCH_DEVICE", "cuda")
+            stack.enter_context(trace(args.trace, device or "cpu"))
+        return args.fn(args)
 
 
 if __name__ == "__main__":

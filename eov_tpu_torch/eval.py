@@ -14,8 +14,12 @@ Embodied eval (``EvalConfig.embodied`` with a virtual bank from
 members to its support members, masked by the bank's counts; the episode
 sequence is the plain protocol's, so the two runs pair episode by episode.
 
-Not ported: the reference's ``matcher`` switch — on the GPU the matcher is
-always the kernel.
+``EvalConfig.matcher`` picks the scorer, as the reference's does:
+``"auto"`` (the default) is kernel 3 on a CUDA table and the plain version
+on a CPU one; ``"pallas"`` is kernel 3 and is refused for a CPU table (the
+kernel runs on the card only); ``"xla"`` is the plain PyTorch version
+(``ops.similarity.episode_scores_plain``) on either device, an explicit
+opt-in for A/B runs such as ``EOV_EVAL_MATCHER=xla`` in the eval bench.
 """
 
 from __future__ import annotations
@@ -29,9 +33,12 @@ import torch
 from eov_tpu_torch import episodes as ep
 from eov_tpu_torch import prng
 from eov_tpu_torch.ops.similarity import episode_class_scores
+from eov_tpu_torch.utils.debug import check_finite
 
-__all__ = ["EvalConfig", "EvalResult", "FeatureTable", "eval_step",
-           "evaluate"]
+__all__ = ["EvalConfig", "EvalResult", "FeatureTable", "MATCHERS",
+           "eval_step", "evaluate"]
+
+MATCHERS = ("auto", "xla", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +54,7 @@ class EvalConfig:
     fusion: str = "max"     # 'max' (union support) | 'mean' (prototype)
     seed: int = 0
     embodied: bool = False  # append the virtual support bank
+    matcher: str = "auto"   # 'auto' | 'xla' (plain) | 'pallas' (kernel 3)
 
 
 class FeatureTable(NamedTuple):
@@ -66,15 +74,28 @@ class EvalResult(NamedTuple):
                 f"+/- {self.ci95 * 100:.2f}%")
 
 
+def _plain_matcher(matcher: str, device: torch.device) -> bool:
+    """Whether ``matcher`` scores with the plain version on ``device``;
+    refuses an unknown name and 'pallas' off the card."""
+    if matcher not in MATCHERS:
+        raise ValueError(f"matcher={matcher!r}: expected one of {MATCHERS}")
+    if matcher == "pallas" and device.type != "cuda":
+        raise ValueError(
+            f"matcher='pallas' is kernel 3, which runs on a CUDA device only; "
+            f"the features are on {device} (use 'auto' or 'xla')")
+    return matcher == "xla"
+
+
 def eval_step(key: torch.Tensor, base_ordinal: int, features: torch.Tensor,
               counts: torch.Tensor, virtual_feats: torch.Tensor | None = None,
               virtual_counts: torch.Tensor | None = None, *, n_way: int,
               k_shot: int, n_query: int, n_step: int, metric: str,
-              fusion: str) -> torch.Tensor:
+              fusion: str, matcher: str = "auto") -> torch.Tensor:
     """Accuracy [n_step] of the episodes with global ordinals
     [base_ordinal, base_ordinal + n_step), on the features' device. With a
     virtual bank ([C, V, D] and [C] counts) each chosen class's virtual
-    members join its support members."""
+    members join its support members. ``matcher`` as ``EvalConfig``'s."""
+    plain = _plain_matcher(matcher, features.device)
     idx = ep.sample_episodes(
         key, counts, n_way=n_way, k_shot=k_shot, n_query=n_query,
         n_episodes=n_step, max_clips=features.shape[1],
@@ -93,8 +114,8 @@ def eval_step(key: torch.Tensor, base_ordinal: int, features: torch.Tensor,
         sup = torch.cat([sup, virt], dim=2)
         mask = torch.cat([mask, vmask], dim=2)
     qry_flat = qry.reshape(n_step, n_way * n_query, -1)
-    scores = episode_class_scores(qry_flat, sup, mask, metric=metric,
-                                  fusion=fusion)
+    scores = check_finite("episode scores", episode_class_scores(
+        qry_flat, sup, mask, metric=metric, fusion=fusion, plain=plain))
     preds = scores.argmax(dim=-1)  # ties to the lower class, as jnp.argmax
     labels = ep.query_labels(n_way, n_query, features.device)[None, :]
     # sum * (1/n), the f32 rounding XLA gives the reference's jnp.mean
@@ -116,6 +137,7 @@ def evaluate(table: FeatureTable, cfg: EvalConfig,
             raise ValueError(
                 f"real ({d_real}-d) and virtual ({d_virt}-d) features were "
                 "extracted with different backbones; re-extract one side")
+    _plain_matcher(cfg.matcher, table.features.device)  # refuse up front
     vf = virtual.features if cfg.embodied else None
     vc = virtual.counts if cfg.embodied else None
     need = cfg.k_shot + cfg.n_query
@@ -132,7 +154,7 @@ def evaluate(table: FeatureTable, cfg: EvalConfig,
             key, done, table.features, table.counts, vf, vc, n_way=cfg.n_way,
             k_shot=cfg.k_shot, n_query=cfg.n_query,
             n_step=cfg.episodes_per_step, metric=cfg.metric,
-            fusion=cfg.fusion,
+            fusion=cfg.fusion, matcher=cfg.matcher,
         )
         take = min(cfg.episodes_per_step, cfg.n_episodes - done)
         accs.append(acc[:take])

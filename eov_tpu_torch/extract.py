@@ -7,7 +7,9 @@ Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
 * ``make_feature_fn`` builds the feature program, uint8 clips
   ``[B, K, H, W, 3]`` -> clip features ``[B, D]``: the fused crop+normalize
   (kernel 1) when frames are stored at the eval scale (``min(h, w) ==
-  scale_size``, so the resize is the identity), the resize path otherwise;
+  scale_size``, so the resize is the identity) and ``pallas_crop`` is on
+  (the default), the resize path (``ops/preprocess.py``, what the
+  reference's XLA route computes) otherwise;
   then the folded ResNet with fused stages (kernel 2 inside; kernel 4 on
   resnet18/34), the stem pool through kernel 6 (``pallas_pool=True``) or
   fused into the stage-1 stack (``"fused"``, kernel 5), optionally the
@@ -28,7 +30,10 @@ Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
   decodes each batch in one call into a buffer of a process-wide ring
   (page-locked when the batch goes to the GPU), which returns to the ring
   once the batch's features have materialized; other datasets, and runs
-  under ``fault_inject``, decode record by record.
+  under ``fault_inject``, decode record by record. ``records=`` restricts
+  the work to those records; ``pad_batches`` pads a short tail batch to
+  ``batch_clips`` by repeating its last clip, and the padded rows never
+  reach the store.
 
 Under ``quant="int8"`` the fused stages resolve as the bf16 ones do:
 ``"auto"`` is ``(1,)`` on bottleneck archs, so stage 1 runs through kernel
@@ -43,8 +48,10 @@ without stage 1 fused or on a basic arch; int8 with ``stem_s2d``). Where the ref
 ``pallas_pool`` (no fused stage resolved, or int8), the port raises
 ``ValueError`` instead: a flag that selects a kernel must not quietly run
 another path. So on resnet18/34, whose ``"auto"`` fused stages are (),
-``pallas_pool=True`` needs explicit ``fused_stages``. The multi-chip mesh
-path is not ported.
+``pallas_pool=True`` needs explicit ``fused_stages``. ``fused_group`` is
+the reference's TPU grid knob (images per kernel grid step), whose results
+are bit-identical for every group; the port accepts it and ignores it. The
+multi-chip mesh path (``extract_features(mesh=)``) is not ported.
 """
 
 from __future__ import annotations
@@ -54,12 +61,13 @@ import logging
 import queue
 import threading
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from eov_tpu_torch.data.datasets import VideoDataset, get_batch_accepts_out
+from eov_tpu_torch.data.datasets import (VideoDataset, VideoRecord,
+                                         get_batch_accepts_out)
 from eov_tpu_torch.data.segments import center_indices_np
 from eov_tpu_torch.data.store import FeatureStore
 from eov_tpu_torch.models import get_arch
@@ -74,6 +82,7 @@ from eov_tpu_torch.models.resnet import (check_state_dict, fold_batchnorm,
                                          space_to_depth_stem)
 from eov_tpu_torch.ops import preprocess
 from eov_tpu_torch.ops.crop_normalize import crop_normalize
+from eov_tpu_torch.utils.debug import check_finite
 from eov_tpu_torch.utils.device import resolve_device
 from eov_tpu_torch.utils.metrics import MetricsWriter, Timer
 
@@ -108,6 +117,11 @@ class ExtractConfig:
                                      # stages, bf16/f32 forward only
     stem_s2d: bool = False         # space-to-depth stem (4x4 conv on
                                    # [H/2, W/2, 12]); bf16/f32 forward only
+    pallas_crop: bool = True       # kernel 1 for frames stored at the eval
+                                   # scale; False = the resize path
+    fused_group: int = 2           # the reference's TPU grid knob; no-op
+    pad_batches: bool = False      # pad the tail batch to batch_clips (the
+                                   # padded rows are dropped before the store)
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
@@ -256,7 +270,7 @@ def make_feature_fn(weights, cfg: ExtractConfig,
     def feature_fn(frames_u8: torch.Tensor) -> torch.Tensor:
         frames_u8 = frames_u8.to(dev, non_blocking=True)
         h, w = frames_u8.shape[-3], frames_u8.shape[-2]
-        if min(h, w) == cfg.scale_size:  # stored at the eval scale
+        if cfg.pallas_crop and min(h, w) == cfg.scale_size:  # eval scale
             x = crop_normalize(frames_u8.contiguous(), crop=cfg.crop_size,
                                dtype=dtype)
         else:
@@ -264,7 +278,7 @@ def make_feature_fn(weights, cfg: ExtractConfig,
                 frames_u8, scale_size=cfg.scale_size,
                 crop_size=cfg.crop_size, dtype=dtype)
         feats = net(x)  # [B, K, D]
-        return feats.float().mean(dim=1)  # TSN consensus
+        return check_finite("features", feats.float().mean(dim=1))  # TSN
 
     return feature_fn
 
@@ -334,19 +348,21 @@ def extract_features(
     feature_fn: Callable | None = None,
     device: torch.device | str = "cuda",
     act_max: dict | None = None,
+    records: Sequence[VideoRecord] | None = None,
 ) -> dict:
     """Extract every record not yet in the store. Returns stats
     {total, skipped_done, extracted, failed}.
 
     ``feature_fn`` overrides the ResNet program (tests swap in a cheap
-    one); ``act_max`` goes to ``make_feature_fn`` (int8 scales).
+    one); ``act_max`` goes to ``make_feature_fn`` (int8 scales);
+    ``records`` restricts the work list (default: all of the dataset's).
     """
     dev = resolve_device(device)
     metrics = metrics or MetricsWriter(None)
     feature_fn = feature_fn or make_feature_fn(weights, cfg, dev,
                                                act_max=act_max)
     done = store.done_ids()
-    work = dataset.records
+    work = dataset.records if records is None else list(records)
     todo = [r for r in work if r.video_id not in done]
     fault_rng = np.random.default_rng(cfg.fault_seed)
     stats = {"total": len(work), "skipped_done": len(work) - len(todo),
@@ -504,6 +520,14 @@ def extract_features(
     for n_batch, groups in decoded():
         n_ok = 0
         for recs, clips, buf in groups:
+            if cfg.pad_batches and len(clips) < cfg.batch_clips:
+                # Repeat the last clip up to the full batch; materialize's
+                # zip(recs, feats) drops the padded rows.
+                pad = np.repeat(clips[-1:], cfg.batch_clips - len(clips), 0)
+                clips = np.concatenate([clips, pad])
+                if buf is not None:  # the padded copy is what goes on
+                    _put_buf(buf)
+                    buf = None
             feats = feature_fn(_host_batch(clips, dev))  # async on GPU
             if pending is not None:
                 materialize(*pending)  # the previous batch drains meanwhile

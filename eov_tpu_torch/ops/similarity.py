@@ -158,9 +158,10 @@ def episode_scores_cuda(query, support, mask, *,
 
 
 def episode_class_scores(query, support, mask, *, metric="cosine",
-                         fusion="max") -> torch.Tensor:
+                         fusion="max", plain: bool = False) -> torch.Tensor:
     """Fused per-class scores [E, Q, N]: the kernel on CUDA tensors, the
-    plain version on CPU tensors.
+    plain version on CPU tensors, and with ``plain=True`` the plain version
+    on either (the eval's ``matcher='xla'``).
 
     fusion='mean' averages each class's valid members on the caller side
     and scores the prototypes with M=1 (a class with no valid member is
@@ -173,6 +174,8 @@ def episode_class_scores(query, support, mask, *, metric="cosine",
     elif fusion != "max":
         raise ValueError(f"unknown fusion: {fusion}")
     kind = query.device.type
+    if plain and kind in ("cuda", "cpu"):
+        return episode_scores_plain(query, support, mask, metric=metric)
     if kind == "cuda":
         return episode_scores_cuda(query.float().contiguous(),
                                    support.float().contiguous(),

@@ -50,6 +50,8 @@ from eov_tpu_torch.models.fused_train import (FusedStack, ResNetSlice,
 from eov_tpu_torch.models.resnet import (BatchNorm, Conv, ResNet,
                                          random_state_dict)
 from eov_tpu_torch.ops import preprocess
+from eov_tpu_torch.utils import debug
+from eov_tpu_torch.utils.debug import check_finite
 from eov_tpu_torch.utils.device import resolve_device
 
 __all__ = ["TrainConfig", "TrainState", "create_train_state",
@@ -224,10 +226,14 @@ def make_train_step(cfg: TrainConfig,
             gen.manual_seed((hi << 32) | lo)
         logits = forward(model, x.reshape(b * k, *x.shape[2:]), gen)
         logits = logits.reshape(b, k, -1).mean(dim=1)  # TSN consensus
-        loss = F.cross_entropy(logits, labels)
+        loss = check_finite("train loss", F.cross_entropy(logits, labels))
         acc = (logits.argmax(dim=-1) == labels).float().mean()
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if debug.enabled():
+            for name, p in model.named_parameters():
+                if p.grad is not None:
+                    check_finite(f"gradient of {name}", p.grad)
         for group in opt.param_groups:
             group["lr"] = learning_rate(cfg, state.step)
         opt.step()

@@ -886,3 +886,38 @@ def test_pooled_extraction_from_raw_shard(dev, tmp_path):
     ring = [b for stack in extract._HOST_BUFS.values() for b in stack
             if b.shape[2:4] == (48, 64)]
     assert ring and all(torch.from_numpy(b).is_pinned() for b in ring)
+
+
+def test_matcher_switch_on_the_card(dev):
+    """eval's matcher: 'auto' and 'pallas' launch kernel 3, 'xla' runs the
+    plain version on the card; their per-episode accuracies agree."""
+    from eov_tpu_torch.eval import EvalConfig, FeatureTable, evaluate
+
+    g = torch.Generator().manual_seed(3)
+    feats = (torch.randn(12, 6, 256, generator=g)
+             + torch.randn(12, 1, 256, generator=g)).to(dev)
+    table = FeatureTable(feats, torch.full((12,), 6, device=dev))
+    runs = {}
+    for m in ("auto", "pallas", "xla"):
+        similarity.episode_class_scores.launches = 0
+        runs[m] = evaluate(table, EvalConfig(n_episodes=128, matcher=m))
+        launched = similarity.episode_class_scores.launches
+        assert (launched == 0) == (m == "xla"), (m, launched)
+    assert np.array_equal(runs["auto"].per_episode, runs["pallas"].per_episode)
+    agree = np.mean(runs["auto"].per_episode == runs["xla"].per_episode)
+    assert agree >= 0.99
+
+
+def test_trace_records_kernels(dev, tmp_path):
+    """A --trace of GPU work holds kernel events, which profile_summary
+    reads as device time."""
+    from eov_tpu_torch.tools.profile_summary import summarize
+    from eov_tpu_torch.utils.trace import trace
+
+    x = torch.randn(512, 512, device=dev)
+    with trace(str(tmp_path), dev):
+        for _ in range(4):
+            x = torch.tanh(x @ x)
+    rows = summarize(str(tmp_path), top=3)
+    assert rows[0]["device"] == "cuda" and rows[0]["device_busy_us"] > 0
+    assert rows[1]["occurrences"] >= 4

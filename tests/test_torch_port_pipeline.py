@@ -158,8 +158,9 @@ def test_cli_end_to_end(tmp_path, capsys):
 
 
 def test_package_imports_no_jax():
-    """Every eov_tpu_torch module (and chip_smoke.py) imports with jax
-    blocked, and no source names the reference package in an import."""
+    """Every eov_tpu_torch module (and chip_smoke.py, bench_torch.py)
+    imports with jax blocked, and no source names the reference package in
+    an import."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -167,13 +168,17 @@ def test_package_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages("
         "eov_tpu_torch.__path__, 'eov_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_torch\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None "
         "and (m == 'eov_tpu' or m.startswith(('eov_tpu.', 'jax', 'flax')))]\n"
         "assert not bad, bad\n"
         "new = {'eov_tpu_torch.runtime.eovc', 'eov_tpu_torch.runtime.native', "
         "'eov_tpu_torch.data.class_splits', 'eov_tpu_torch.data.datasets', "
-        "'eov_tpu_torch.tools.pack_eovc'}\n"
+        "'eov_tpu_torch.tools.pack_eovc', 'eov_tpu_torch.bench.features', "
+        "'eov_tpu_torch.bench.train', 'eov_tpu_torch.bench.eval', "
+        "'eov_tpu_torch.bench.e2e', 'eov_tpu_torch.utils.flops', "
+        "'eov_tpu_torch.utils.trace', 'eov_tpu_torch.tools.profile_summary', "
+        "'eov_tpu_torch.tools.compare_eval'}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods))\n"
     )
@@ -181,16 +186,18 @@ def test_package_imports_no_jax():
                          text=True, cwd=ROOT, timeout=120,
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36
+    assert int(out.stdout.strip()) >= 49
     import re
 
     pat = re.compile(r"^\s*(from|import)\s+(eov_tpu|jax|flax)(\.|\s|$)",
                      re.M)
+    paths = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                              "bench_torch.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "eov_tpu_torch")):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    assert not pat.search(fh.read()), f
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def test_no_silent_cpu_fallback(tmp_path):
