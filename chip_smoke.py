@@ -68,7 +68,24 @@ Phases (any failure exits non-zero):
    and the steady-state summary printed) and ``cli extract --trace`` of 8
    clips, each summarized by ``tools/profile_summary`` (head row and top
    five ops printed);
-9. print the ``kernels`` JSON line, the card line, and last
+9. the train levers: the TrainConfig defaults on one fixed batch and step
+   key, three steps each with the stem levers off, ``stem_s2d='on'``,
+   ``pool_vjp='on'`` and both (kernels 8 and 9 behind each stem), and the
+   first step of each in f32; every lever run lowers the loss, its first
+   stem gradient is near the lever-off one (the stem BN's in bf16 and
+   conv1's in f32 within relative L2 2e-2; conv1's in bf16 within the
+   lever-off bf16 gradient's own distance from f32), ``pool_vjp`` alone
+   repeats the lever-off first loss; each run's median step time (seven
+   more steps, the configurations in turns) beside the lever-off one;
+10. the deployment benches (``bench/fused_eval``, ``classify``,
+   ``episode`` with clips from a RAW EOVC shard, ``decode``), each line
+   printed beside the card: the fused-vs-cached eval at its default bank
+   (24 x 25 x 8 clips of 256x340 on the card, 64 episodes a step) with
+   ``acc_max_delta <= 0.01``, kernels 1 and 2 launched there and kernels
+   1-3 by classify and episode, a RAW decode rate; and a ``fold_bn=False``
+   feature program on phase 4's 32 clips (kernel 1 crops) at per-clip
+   cosine >= 0.999 (bf16) to the folded one, both timed;
+11. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds kernel 6 (the stem max-pool) equal to its plain
@@ -91,6 +108,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -169,14 +187,15 @@ def rel_ok(got, want, rtol, atol) -> tuple[bool, float]:
 
 # --------------------------------------------------------------- kernels
 
-CROP_SHAPES = ((256, 320), (256, 341))  # the synthetic main path; UCF101
-                                        # frames stored at short side 256
+# The synthetic main path; the deploy benches' 256x340 bank and clips;
+# UCF101 frames stored at short side 256.
+CROP_SHAPES = ((256, 320), (256, 340), (256, 341))
 
 
 def check_crop(dev):
     """Kernel 1 at 256 frames of each of CROP_SHAPES, bf16 and f32, bit for
     bit. The row's ms / plain_ms / bound_ms are the 256x320 ones (the
-    earlier slices' shape); ``shapes`` holds both."""
+    earlier slices' shape); ``shapes`` holds them all."""
     from eov_tpu_torch.ops import crop_normalize as cn
 
     n, shapes = 256, {}
@@ -214,11 +233,13 @@ def check_crop(dev):
         "ms": first["ms"], "plain_ms": first["plain_ms"],
         "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
         "library_ms": None, "shapes": shapes,
-        "note": "256x341: " + ", ".join(
-            f"{k} {v}" for k, v in shapes["256x341"].items()
-            if k in ("ms", "plain_ms", "bound_ms")),
-        "shape": f"u8 [{n}, 256, 320, 3] and [{n}, 256, 341, 3] -> bf16 "
-                 f"[{n}, 224, 224, 3]",
+        "note": "; ".join(f"{hw}: " + ", ".join(
+            f"{k} {v}" for k, v in shapes[hw].items()
+            if k in ("ms", "plain_ms", "bound_ms"))
+            for hw in shapes if hw != "256x320"),
+        "shape": " and ".join(f"u8 [{n}, {h}, {w}, 3]"
+                              for h, w in CROP_SHAPES)
+        + f" -> bf16 [{n}, 224, 224, 3]",
     }
 
 
@@ -318,10 +339,14 @@ def _block_io_bytes(x, blocks) -> int:
     return total
 
 
+F32_STACK_IMAGES = (8, 16, 64)
+
+
 def check_stack(dev):
     """Kernel 2 at ResNet-50 stage 1, 256 images: bf16 rtol/atol 2e-2 with
-    per-image cosine >= 0.999, f32 on 16 images 1e-4; at stage 1 and at
-    the stride-1 tails of stages 2-4 (64 images), each block fed the plain
+    per-image cosine >= 0.999, f32 on F32_STACK_IMAGES images 1e-4; at
+    stage 1 and at the stride-1 tails of stages 2-4 (64 images), each
+    block fed the plain
     version's stream within 2 bf16 ulps of the stream's magnitude at the
     element's pixel; the tails' stacks at per-image cosine >= 0.9999.
     Times: stage 1 (the kernels line) and each tail beside cuDNN."""
@@ -344,13 +369,19 @@ def check_stack(dev):
         fail(f"bottleneck stack (bf16) disagrees: max err {err}, "
              f"min cosine {float(cos.min())}, per block {ulps} ulps of the "
              f"stream (bar 2)")
-    # f32 mode (the synthetic_smoke / episode_cpu presets) on 16 images.
+    # f32 mode (the synthetic_smoke / episode_cpu presets): 8 images (one
+    # clip of 8 segments: the episode bench and classify at batch 1), 16,
+    # and 64 (classify's batch of 8 clips).
     b32 = [{k: v.float() for k, v in blk.items()} for blk in blocks]
-    g32 = bn.bottleneck_stack_cuda(x[:16].contiguous(), b32, h=h, w=w)
-    w32 = bn.bottleneck_stack_plain(x[:16].contiguous(), b32, h=h, w=w)
-    ok32, err32 = rel_ok(g32, w32, 1e-4, 1e-4)
-    if not ok32:
-        fail(f"bottleneck stack (f32) disagrees: max err {err32}")
+    err32 = 0.0
+    for n32 in F32_STACK_IMAGES:
+        g32 = bn.bottleneck_stack_cuda(x[:n32].contiguous(), b32, h=h, w=w)
+        w32 = bn.bottleneck_stack_plain(x[:n32].contiguous(), b32, h=h, w=w)
+        ok32, e32 = rel_ok(g32, w32, 1e-4, 1e-4)
+        if not ok32:
+            fail(f"bottleneck stack (f32, {n32} images) disagrees: max err "
+                 f"{e32}")
+        err32 = max(err32, e32)
     tails = {}
     for name, (hw, c, cmid, nb) in BOTTLENECK_TAILS.items():
         m = 64
@@ -400,7 +431,8 @@ def check_stack(dev):
         "min_cosine": float(cos.min()), "block_max_ulps": max(ulps),
         "tolerance": "bf16 rtol 2e-2 atol 2e-2, cosine >= 0.999, each block "
                      "<= 2 ulps of the stream's magnitude at the element's "
-                     "pixel; f32 rtol 1e-4 atol 1e-4; tails: per block 2 "
+                     "pixel; f32 (8, 16 and 64 images) rtol 1e-4 atol "
+                     "1e-4; tails: per block 2 "
                      "ulps, stack cosine >= 0.9999",
         "instruction": "bf16: wgmma.mma_async m64n64k16 / m64n128k16 (A by "
                        "ldmatrix, B from a cp.async weight ring); f32: FFMA",
@@ -535,6 +567,12 @@ def check_int8_stack(dev):
     }
 
 
+# (queries, classes, members) of one episode, E=1.
+MATCHER_DEPLOY_SHAPES = {"classify_batch8": (8, 101, 5),
+                         "classify_batch1": (1, 101, 5),
+                         "episode": (5, 5, 1)}
+
+
 def check_matcher(dev):
     from eov_tpu_torch.ops import similarity as sim
 
@@ -579,6 +617,21 @@ def check_matcher(dev):
         if not torch.equal(got6, sim.episode_scores_cuda(query, sup6, m6,
                                                          metric=metric)):
             fail(f"episode matcher ({metric}) differs run to run")
+    # The deploy benches' shapes: classify's whole split as one episode
+    # (cli._class_scores: 101 classes x 5 shots against a batch of 8 or 1
+    # queries) and the cold 5-way 1-shot episode.
+    deploy = {}
+    for name, (dq, dn, dm) in MATCHER_DEPLOY_SHAPES.items():
+        qd = torch.randn(1, dq, d, generator=gen, device=dev)
+        sd = torch.randn(1, dn, dm, d, generator=gen, device=dev)
+        md = torch.ones(1, dn, dm, device=dev)
+        ok, deploy[name] = rel_ok(sim.episode_scores_cuda(qd, sd, md),
+                                  sim.episode_scores_plain(qd, sd, md),
+                                  0.0, 1e-5)
+        if not ok:
+            fail(f"episode matcher at the {name} shape (q [1, {dq}, {d}], "
+                 f"s [1, {dn}, {dm}, {d}]) disagrees: max err "
+                 f"{deploy[name]}")
     qn = sim.l2_normalize(query)
     sn = sim.l2_normalize(support)
     b, by = bound(4 * (e * q * d + e * n * m * d + e * n * m + e * q * n),
@@ -605,8 +658,11 @@ def check_matcher(dev):
                                                                m6),
                                repeats=25, inner=20, graph=True),
         "embodied_max_abs_err": err6,
+        "deploy_max_abs_err": deploy,
         "shape": f"f32 q [{e}, {q}, {d}], s [{e}, {n}, {m}, {d}]; embodied "
-                 f"s [{e}, {n}, 6, {d}] masked",
+                 f"s [{e}, {n}, 6, {d}] masked; deploy (q, n, m) at E=1: "
+                 + ", ".join(f"{k} {v}"
+                             for k, v in MATCHER_DEPLOY_SHAPES.items()),
     }
 
 
@@ -2203,6 +2259,383 @@ def bench_path(dev, gpu, feature_ms_32: float):
             "trace_summary_top5": rows[1:]}
 
 
+# ----------------------------------------------------- train levers path
+
+def train_levers_path(dev, gpu):
+    """The TrainConfig defaults (ResNet-50, 32 clips x K 3 at 224^2, bf16,
+    fused stage 1 + stage-2 tail: kernels 8 and 9) on one fixed batch and
+    one step key, seeded weights: three steps each with the stem levers
+    off, ``stem_s2d='on'``, ``pool_vjp='on'`` and both, then the first
+    step of each again in f32. Each lever run lowers the loss over its
+    three steps; ``pool_vjp`` alone repeats the lever-off first loss (the
+    same forward op). Each lever's first-step stem gradient against the
+    lever-off one: the stem BN's (bf16) and conv1's in f32 within relative
+    L2 2e-2 (kernel 9's bf16 reorder bar), and conv1's in bf16 within the
+    distance of the lever-off bf16 gradient from the lever-off f32 one
+    (conv1 feeds the one batch-statistics BN, so its weight gradient is a
+    sum that cancels and carries bf16's rounding many times over). Step
+    times by CUDA events: the median of the three, after one untimed step
+    of the same configuration on a throwaway state, and of seven more
+    steps each with the four configurations in turns. Spies on
+    ``_S2DConv1.forward`` and the first-max pool's backward show that each
+    run took its levers' paths and no other's, and under ``stem_s2d``
+    conv1's gradient must differ from the lever-off one."""
+    from eov_tpu_torch import prng
+    from eov_tpu_torch import train as tr
+    from eov_tpu_torch.models.fused_train import _S2DConv1
+    from eov_tpu_torch.models.resnet import random_state_dict
+    from eov_tpu_torch.ops import bottleneck_train
+    from eov_tpu_torch.ops.pool import _MaxPoolVJP
+
+    base = tr.TrainConfig()
+    weights = random_state_dict(base.arch, seed=0,
+                                num_classes=base.num_classes)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randint(0, 256, (base.batch_clips, base.num_segments,
+                                    256, 320, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    labels = torch.randint(0, base.num_classes, (base.batch_clips,),
+                           generator=gen, device=dev)
+    key = prng.key(11)  # one key: the same crops and dropout every step
+    kernels = {"bottleneck_train_fwd": bottleneck_train.train_stack_forward,
+               "bottleneck_train_bwd": bottleneck_train.train_stack_backward}
+    levers = (("off", {}), ("stem_s2d", {"stem_s2d": "on"}),
+              ("pool_vjp", {"pool_vjp": "on"}),
+              ("both", {"stem_s2d": "on", "pool_vjp": "on"}))
+    stem = ("conv1.weight", "bn1.weight", "bn1.bias")
+
+    def run(cfg, n_steps):
+        step = tr.make_train_step(cfg, dev)
+        # One untimed step on a throwaway state first: the first step of a
+        # configuration pays cuDNN's set-up for its shapes.
+        step(tr.create_train_state(cfg, dev, weights=weights), frames,
+             labels, key)
+        state = tr.create_train_state(cfg, dev, weights=weights)
+        losses, times, grads = [], [], None
+        for i in range(n_steps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = step(state, frames, labels, key)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            losses.append(float(m["loss"]))
+            if i == 0:
+                params = dict(state.model.named_parameters())
+                grads = {n: params[n].grad.detach().float().clone()
+                         for n in stem}
+        return losses, times, grads, (state, step)
+
+    # Each run must take its levers' paths and no other's: the spies count
+    # the s2d stem conv's forwards and the first-max pool's backwards.
+    calls = {"stem_s2d": 0, "pool_vjp": 0}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapped
+
+    saved = (_S2DConv1.forward, _MaxPoolVJP.backward)
+    _S2DConv1.forward = spy("stem_s2d", saved[0])
+    _MaxPoolVJP.backward = staticmethod(spy("pool_vjp", saved[1]))
+    for k in kernels.values():
+        k.launches = 0
+    runs, live = {}, {}
+    try:
+        for name, lev in levers:
+            calls.update(stem_s2d=0, pool_vjp=0)
+            losses, times, grads, live[name] = run(
+                dataclasses.replace(base, **lev), 3)
+            runs[name] = {"losses": losses, "step_ms": times,
+                          "step_ms_median": statistics.median(times),
+                          "grads": grads, "lever_calls": dict(calls)}
+            if {f: c > 0 for f, c in calls.items()} != {
+                    f: f in lev for f in calls}:
+                fail(f"{name} ({lev}): the lever paths ran {calls} times")
+    finally:
+        _S2DConv1.forward, _MaxPoolVJP.backward = saved
+    # Seven more steps of each, the configurations in turns, so that the
+    # card's drift falls on all four alike.
+    turns = {name: [] for name in live}
+    for _ in range(7):
+        for name, (state, step) in live.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(state, frames, labels, key)
+            b.record()
+            b.synchronize()
+            turns[name].append(a.elapsed_time(b))
+    del live
+    launches = {name: k.launches for name, k in kernels.items()}
+    if any(c == 0 for c in launches.values()):
+        fail(f"kernels 8/9 never launched on the lever path: {launches}")
+    f32 = {name: run(dataclasses.replace(base, compute_dtype="float32",
+                                         **lev), 1)[2]
+           for name, lev in levers}
+
+    def rel(got, want, names):
+        g = torch.cat([got[n].flatten() for n in names])
+        w = torch.cat([want[n].flatten() for n in names])
+        return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+    off = runs["off"]
+    floor = rel(off["grads"], f32["off"], ("conv1.weight",))
+    out = {"gpu": gpu, "config": "TrainConfig defaults (resnet50, 32 clips "
+           "x K 3, 256x320 -> 224, bf16, fused stage 1 + stage-2 tail), one "
+           "fixed batch and step key, weights random_state_dict(seed=0)",
+           "launches": launches,
+           "conv1_grad_rel_l2_bf16_off_vs_f32_off": floor}
+    for name, run_ in runs.items():
+        losses = run_["losses"]
+        if not all(np.isfinite(losses)):
+            fail(f"{name}: non-finite loss {losses}")
+        row = {k: v for k, v in run_.items() if k != "grads"}
+        row["step_ms_in_turns"] = turns[name]
+        row["step_ms_in_turns_median"] = statistics.median(turns[name])
+        if name != "off":
+            if not losses[2] < losses[0]:
+                fail(f"{name}: three steps did not lower the loss: {losses}")
+            row.update(
+                bn1_grad_rel_l2_bf16=rel(run_["grads"], off["grads"],
+                                         ("bn1.weight", "bn1.bias")),
+                conv1_grad_rel_l2_bf16=rel(run_["grads"], off["grads"],
+                                           ("conv1.weight",)),
+                conv1_grad_rel_l2_f32=rel(f32[name], f32["off"],
+                                          ("conv1.weight",)),
+                step_ms_median_off=off["step_ms_median"],
+                step_ms_in_turns_ratio_vs_off=(
+                    statistics.median(turns[name])
+                    / statistics.median(turns["off"])))
+            if "stem_s2d" in dict(levers)[name] and torch.equal(
+                    run_["grads"]["conv1.weight"],
+                    off["grads"]["conv1.weight"]):
+                fail(f"{name}: conv1's gradient is bit-equal to the "
+                     f"lever-off one: the s2d conv did not run")
+            if (row["bn1_grad_rel_l2_bf16"] > 2e-2
+                    or row["conv1_grad_rel_l2_f32"] > 2e-2
+                    or row["conv1_grad_rel_l2_bf16"] > floor):
+                fail(f"{name}: stem gradient off the lever-off one: {row} "
+                     f"(bars: bn1 bf16 and conv1 f32 2e-2, conv1 bf16 "
+                     f"{floor}, the bf16 path's own distance from f32)")
+        out[name] = row
+    lp, lo = runs["pool_vjp"]["losses"][0], off["losses"][0]
+    if lp != lo:
+        # The same forward op; only another cuDNN algorithm between the two
+        # runs could move it, and then by rounding alone.
+        r = abs(lp - lo) / abs(lo)
+        print(json.dumps({"pool_vjp_first_loss_not_bit_equal": {
+            "pool_vjp": lp, "off": lo, "rel": r,
+            "reason": "a different cuDNN algorithm between the two runs; "
+                      "bar relative 1e-6"}}), flush=True)
+        if r > 1e-6:
+            fail(f"pool_vjp first-step loss {lp} vs lever-off {lo}")
+    out["pool_vjp_first_loss_equal_off"] = lp == lo
+    return out
+
+
+# ------------------------------------------------------ deploy bench path
+
+# (name, bench module, knobs): the four deployment benches at short
+# windows. fused_eval at its default bank and 64 episodes a step; classify
+# and episode read their clips from a RAW EOVC shard (this machine has no
+# PIL); decode at its defaults.
+DEPLOY_RUNS = (
+    ("fused_eval", "fused_eval",
+     {"EOV_BENCH_DEVICE": "cuda", "EOV_FUSED_ITERS": "2",
+      "EOV_FUSED_WINDOW": "2"}),
+    ("classify", "classify",
+     {"EOV_CLASSIFY_DEVICE": "cuda", "EOV_CLASSIFY_FRAMES_FROM": "eovc_raw",
+      "EOV_CLASSIFY_REPEATS": "5"}),
+    ("episode", "episode",
+     {"EOV_EPISODE_DEVICE": "cuda", "EOV_EPISODE_FRAMES_FROM": "eovc_raw",
+      "EOV_EPISODE_REPEATS": "3"}),
+)
+
+
+class _FusedStepCapture:
+    """While active: the first fused step's first chunk of clips, as the
+    fused eval bench gathers it, and the features its feature program
+    returns for exactly that chunk (matched by storage, so the bench's
+    cached-side calls never match), with the program's weights and
+    config."""
+
+    def __init__(self, chunk: int):
+        self.chunk, self.found = chunk, {}
+
+    def __enter__(self):
+        from eov_tpu_torch import extract
+        from eov_tpu_torch.bench import fused_eval
+
+        self._saved = (fused_eval.gather_step_clips, extract.make_feature_fn)
+        gather, make = self._saved
+        found = self.found
+
+        def gather_spy(*args, **kw):
+            clips = gather(*args, **kw)
+            if "clips" not in found:
+                flat = clips.reshape(-1, *clips.shape[-4:])
+                found["clips"] = flat[:self.chunk].clone()
+                found["ptr"] = clips.data_ptr()
+            return clips
+
+        def make_spy(weights, cfg, dev):
+            fn = make(weights, cfg, dev)
+            found["make"] = (weights, cfg)
+
+            def feature_fn(x):
+                y = fn(x)
+                if ("feats" not in found and found.get("ptr")
+                        == x.data_ptr()):
+                    found["feats"] = y.clone()
+                return y
+            return feature_fn
+
+        fused_eval.gather_step_clips = gather_spy
+        extract.make_feature_fn = make_spy
+        return self
+
+    def __exit__(self, *exc):
+        from eov_tpu_torch import extract
+        from eov_tpu_torch.bench import fused_eval
+
+        fused_eval.gather_step_clips, extract.make_feature_fn = self._saved
+
+
+def deploy_bench_path(dev, gpu, batch):
+    """The fused-vs-cached eval, classify, episode and decode benches; the
+    fused eval's first chunk of 64 gathered clips through the plain
+    program (f32, no kernel: the resize path's crop, cuDNN stage 1) held
+    against the bench's own features at the main path's per-clip bars
+    (its bf16 program at cosine >= 0.99, the same kernels in f32 at
+    0.99999); and a ``fold_bn=False`` extraction of the main path's batch
+    held against the folded program on the same frames."""
+    import contextlib
+    import importlib
+    import io
+
+    from eov_tpu_torch.extract import ExtractConfig, make_feature_fn
+    from eov_tpu_torch.models.resnet import random_state_dict
+    from eov_tpu_torch.ops import bottleneck, crop_normalize, similarity
+
+    kernels = {"crop_normalize": crop_normalize.crop_normalize,
+               "bottleneck_stack": bottleneck.fused_bottleneck_stack,
+               "episode_scores": similarity.episode_class_scores}
+    lines, launches = {}, {}
+    capture = _FusedStepCapture(chunk=64)
+    for name, module, env in DEPLOY_RUNS:
+        for k in kernels.values():
+            k.launches = 0
+        main = importlib.import_module(f"eov_tpu_torch.bench.{module}").main
+        t0 = time.perf_counter()
+        with capture if name == "fused_eval" else contextlib.nullcontext():
+            line = _bench_line(main, env)
+        launches[name] = {n: k.launches for n, k in kernels.items()}
+        print(json.dumps({"bench": name, "card": gpu,
+                          "s": time.perf_counter() - t0, **line}),
+              flush=True)
+        lines[name] = line
+    need = {"fused_eval": ("crop_normalize", "bottleneck_stack"),
+            "classify": tuple(kernels), "episode": tuple(kernels)}
+    for name, names in need.items():
+        zero = [n for n in names if launches[name][n] == 0]
+        if zero:
+            fail(f"kernels never launched by the {name} bench: {zero}")
+    bad = [n for n, line in lines.items() if not line["value"] > 0]
+    if bad:
+        fail(f"bench values not > 0: {bad}")
+    fe = lines["fused_eval"]["detail"]
+    if fe["bank_cmk_hw"] != [24, 25, 8, 256, 340] or fe[
+            "episodes_per_step"] != 64:
+        fail(f"fused eval bench not at its default bank: {fe}")
+    if fe["acc_max_delta"] > 0.01:
+        fail(f"fused vs cached eval disagree: acc_max_delta "
+             f"{fe['acc_max_delta']} (bar 0.01)")
+    for name in ("classify", "episode"):
+        d = lines[name]["detail"]
+        if d["frames_from"] != "eovc_raw" or d["arch"] != "resnet50":
+            fail(f"{name} bench ran {d['frames_from']} / {d['arch']}")
+
+    # The fused step's own features against the plain program.
+    got = capture.found
+    if "feats" not in got:
+        fail(f"the fused eval bench's first step was not captured: "
+             f"{sorted(got)}")
+    fe_weights, fe_cfg = got["make"]
+    clips = got["clips"]
+    plain = make_feature_fn(fe_weights, dataclasses.replace(
+        fe_cfg, compute_dtype="float32", fused_stages=(),
+        pallas_crop=False), dev)(clips)
+    kernels32 = make_feature_fn(fe_weights, dataclasses.replace(
+        fe_cfg, compute_dtype="float32"), dev)(clips)
+    cos = torch.nn.functional.cosine_similarity
+    fused_cos = {
+        "bench_bf16_vs_plain_f32": float(cos(got["feats"].float(), plain,
+                                             dim=1).min()),
+        "kernels_f32_vs_plain_f32": float(cos(kernels32, plain,
+                                              dim=1).min())}
+    if (tuple(got["feats"].shape) != (64, 2048)
+            or not bool(torch.isfinite(got["feats"]).all())
+            or fused_cos["bench_bf16_vs_plain_f32"] < 0.99
+            or fused_cos["kernels_f32_vs_plain_f32"] < 0.99999):
+        fail(f"the fused eval step's features disagree with the plain "
+             f"program on its first 64 clips: {fused_cos} (bars 0.99 bf16, "
+             f"0.99999 f32), shape {tuple(got['feats'].shape)}")
+    del clips, plain, kernels32, capture
+
+    buf = io.StringIO()
+    from eov_tpu_torch.bench import decode
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        decode.main()
+    dec = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    for line in dec:
+        print(json.dumps({"bench": "decode", "card": gpu, **line}),
+              flush=True)
+    dec_s = time.perf_counter() - t0
+    raw = [x for x in dec if x["detail"]["path"] in ("eovc_raw",
+                                                       "python_raw")
+           and x["value"] is not None]
+    if not raw or any(x["value"] is not None and not x["value"] > 0
+                      for x in dec):
+        fail(f"decode bench: no RAW rate, or a rate not > 0: {dec}")
+
+    # fold_bn=False on the main path's 32 clips (256x320, kernel 1 crops):
+    # the unfolded program against the folded one, bf16.
+    weights = random_state_dict("resnet50", seed=0)
+    cfg = ExtractConfig(num_segments=8, batch_clips=32)
+    folded = make_feature_fn(weights, cfg, dev)
+    unfolded = make_feature_fn(weights, dataclasses.replace(
+        cfg, fold_bn=False), dev)
+    crop_normalize.crop_normalize.launches = 0
+    bottleneck.fused_bottleneck_stack.launches = 0
+    a, b = unfolded(batch), folded(batch)
+    unfolded_launches = {
+        "crop_normalize": crop_normalize.crop_normalize.launches}
+    if unfolded_launches["crop_normalize"] == 0:
+        fail("the fold_bn=False program did not crop with kernel 1")
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
+    if not bool(torch.isfinite(a).all()) or cos < 0.999:
+        fail(f"fold_bn=False features vs folded: min cosine {cos} "
+             "(bar 0.999, bf16)")
+    ms_unfolded = cuda_ms(lambda: unfolded(batch), repeats=5, inner=1)
+    ms_folded = cuda_ms(lambda: folded(batch), repeats=5, inner=1)
+    return {"gpu": gpu, "launches": launches,
+            "fused_eval_acc_max_delta": fe["acc_max_delta"],
+            "fused_eval_chunk_min_cosine_vs_plain": fused_cos,
+            "decode_s": dec_s,
+            "decode_rates": {x["detail"]["path"]: [x["value"],
+                                                   x["detail"]["reader"]]
+                             for x in dec},
+            "fold_bn_false_cosine_vs_folded_min": cos,
+            "fold_bn_false_launches": unfolded_launches,
+            "feature_program_ms_per_32_clips": {
+                "fold_bn_false": ms_unfolded, "folded_main": ms_folded}}
+
+
 def gpu_vs_cpu_step(dev):
     """Two f32 steps (fused: kernels 8/9 on the GPU, plain on the CPU), same
     weights and keys: loss rel 1e-4, params atol 1e-4, stem BN stats atol
@@ -2302,7 +2735,6 @@ def main() -> int:
     print(json.dumps({"int8_embodied_path": int8}), flush=True)
     phase("int8_embodied_path")
     basic = basic_pool_path(dev, gpu, batch)
-    del batch
     print(json.dumps({"basic_pool_path": basic}), flush=True)
     phase("basic_pool_path")
     train = train_path(dev, gpu)
@@ -2314,6 +2746,13 @@ def main() -> int:
     print(json.dumps({"bench_path": bench_path(
         dev, gpu, summary["feature_program_ms_per_32_clips"])}), flush=True)
     phase("bench_path")
+    print(json.dumps({"train_levers_path": train_levers_path(dev, gpu)}),
+          flush=True)
+    phase("train_levers_path")
+    print(json.dumps({"deploy_bench_path": deploy_bench_path(
+        dev, gpu, batch)}), flush=True)
+    del batch
+    phase("deploy_bench_path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     new = ("basic_stack", "maxpool_s2", "pool_bottleneck_stack")

@@ -14,6 +14,11 @@ table, the timing window and the trace switch.
   CPU), per call.
 * ``traced`` — ``utils/trace.py`` around the timed windows when the
   bench's trace variable names a directory.
+* ``frame_source`` / ``clip_dataset`` — the deployment benches' query
+  clips (classify, episode): the synthetic clips written as JPEG frame
+  folders read through PIL (``jpeg``, the reference's fixture), or packed
+  into one RAW EOVC shard by ``tools/pack_eovc`` and read by the port's
+  EOVC reader (``eovc_raw``, for a machine without PIL).
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import torch
 
 from eov_tpu_torch.utils.device import resolve_device
 
-__all__ = ["PEAKS", "bench_device", "env_default", "card", "mfu_fields",
-           "build_kernels", "step_seconds", "traced", "emit"]
+__all__ = ["PEAKS", "FRAME_SOURCES", "bench_device", "env_default", "card",
+           "mfu_fields", "build_kernels", "sync", "step_seconds", "traced",
+           "emit",
+           "frame_source", "clip_dataset", "reader_name"]
 
 # Dense (no sparsity) tensor-core peaks: card name -> (bf16 TFLOP/s, int8
 # TOP/s, source). NVIDIA's H100 data sheet gives the sparse rates; dense is
@@ -98,6 +105,12 @@ def build_kernels(dev: torch.device) -> float | None:
     return round(time.perf_counter() - t0, 3)
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def step_seconds(fn, window: int, dev: torch.device) -> float:
     """Seconds per call over ``window`` back-to-back calls of ``fn``."""
     if dev.type == "cuda":
@@ -129,3 +142,50 @@ def traced(env_name: str, dev: torch.device):
 def emit(record: dict) -> None:
     """The bench's one JSON line on stdout."""
     print(json.dumps(record), flush=True)
+
+
+FRAME_SOURCES = ("jpeg", "eovc_raw")
+
+
+def frame_source(env_name: str) -> str:
+    """``$env_name`` (default ``jpeg``), checked: nothing switches on its
+    own."""
+    src = os.environ.get(env_name, "jpeg")
+    if src not in FRAME_SOURCES:
+        raise SystemExit(f"{env_name}={src!r}: expected one of "
+                         f"{FRAME_SOURCES}")
+    return src
+
+
+def clip_dataset(root: str, syn, source: str):
+    """The clips of the synthetic dataset ``syn`` stored under ``root`` as
+    ``source`` says, read back as a dataset with the same records."""
+    import numpy as np
+
+    from eov_tpu_torch.data import datasets
+
+    if source == "eovc_raw":
+        from eov_tpu_torch.tools.pack_eovc import pack
+
+        path = os.path.join(root, "clips.eovc")
+        pack(syn, path, storage_short_side=None, codec="raw")
+        return datasets.EovcVideoDataset(path)
+    from PIL import Image  # lazily: a machine without PIL uses eovc_raw
+
+    split = []
+    for rec in syn.records:
+        clip = syn.get_frames(rec, np.arange(rec.num_frames))
+        vdir = os.path.join(root, rec.video_id)
+        os.makedirs(vdir, exist_ok=True)
+        for t, frame in enumerate(clip):
+            Image.fromarray(np.ascontiguousarray(frame)).save(
+                os.path.join(vdir, f"img_{t + 1:05d}.jpg"), quality=90)
+        split.append((rec.video_id, rec.num_frames, rec.label))
+    return datasets.FrameFolderDataset(root, split, syn.class_names)
+
+
+def reader_name(ds) -> str:
+    """Which reader a ``clip_dataset`` reads through."""
+    if not hasattr(ds, "is_native"):
+        return type(ds).__name__
+    return f"{type(ds).__name__} ({'native' if ds.is_native else 'python'})"

@@ -33,14 +33,9 @@ import numpy as np
 import torch
 
 from eov_tpu_torch.bench.common import (bench_device, build_kernels, card,
-                                        emit, env_default, step_seconds)
+                                        emit, env_default, step_seconds, sync)
 
 __all__ = ["main"]
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def main() -> None:
@@ -87,12 +82,12 @@ def main() -> None:
 
         store = FeatureStore(os.path.join(workdir, "store"),
                              class_names=ds.class_names)
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         stats = extract_features(ds, weights, store, cfg,
                                  feature_fn=feature_fn, device=dev,
                                  records=recs)
-        _sync(dev)
+        sync(dev)
         wall = time.perf_counter() - t0
         if stats["extracted"] != len(recs) or stats["failed"]:
             raise SystemExit(f"e2e bench: extraction incomplete: {stats}")

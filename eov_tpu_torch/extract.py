@@ -35,6 +35,15 @@ Counterpart of ``eov_tpu/extract.py`` (``ExtractConfig``,
   ``batch_clips`` by repeating its last clip, and the padded rows never
   reach the store.
 
+``fold_bn=False`` runs the unfolded ResNet instead: each conv (its output
+rounded to the compute dtype) then inference-mode BatchNorm in f32 from
+the raw running statistics, the residual adds in f32, the reference's
+``feature_apply(..., folded=False)``; the fused stages resolve to () there
+(as the reference's do), so kernel 2 is off the path, while kernel 1 still
+crops under ``pallas_crop`` and ``stem_s2d`` still applies (the 4x4 conv of
+the refolded 7x7 kernel). int8 (and its calibration) needs the fold, and
+``pallas_pool`` without it is refused, as below.
+
 Under ``quant="int8"`` the fused stages resolve as the bf16 ones do:
 ``"auto"`` is ``(1,)`` on bottleneck archs, so stage 1 runs through kernel
 7. The reference resolves ``"auto"`` to the pure int8 walk there, from a
@@ -78,7 +87,9 @@ from eov_tpu_torch.models.quant_infer import (QuantResNet, calibrate_act_max,
                                               quantize_variables,
                                               resolve_quant_fused_stages,
                                               synthetic_calib_frames)
-from eov_tpu_torch.models.resnet import (check_state_dict, fold_batchnorm,
+from eov_tpu_torch.models.fused_train import ResNetStem
+from eov_tpu_torch.models.resnet import (ResNet, block_names,
+                                         check_state_dict, fold_batchnorm,
                                          space_to_depth_stem)
 from eov_tpu_torch.ops import preprocess
 from eov_tpu_torch.ops.crop_normalize import crop_normalize
@@ -102,7 +113,10 @@ class ExtractConfig:
     scale_size: int = 256
     crop_size: int = 224
     compute_dtype: str = "bfloat16"
+    fold_bn: bool = True           # fold inference BN into the convs; False
+                                   # = conv then f32 BN from running stats
     fused_stages: tuple | str = "auto"  # "auto" = (1,) on bottleneck archs
+                                        # (() without fold_bn)
     flush_every: int = 64          # clips per durable shard
     deterministic: bool = False    # decode inline, no overlap (tests)
     fault_inject: float = 0.0      # P(decode failure), failure-path tests
@@ -132,6 +146,10 @@ class ExtractConfig:
         if self.quant_calib not in ("synthetic", "dataset"):
             raise ValueError(f"quant_calib={self.quant_calib!r}: expected "
                              "'synthetic' or 'dataset'")
+        if self.quant is not None and not self.fold_bn:
+            raise ValueError(
+                "quant='int8' quantizes the FOLDED inference path: it needs "
+                "fold_bn=True")
         self._check_stem_options()
 
     def _check_stem_options(self) -> None:
@@ -153,7 +171,13 @@ class ExtractConfig:
                     f"quant='int8' with pallas_pool={pool!r}: the int8 "
                     "forward has no stem-pool kernel; drop --pallas-pool")
             return
-        stages = resolve_fused_stages(self.fused_stages, arch=self.arch)
+        if pool and not self.fold_bn:
+            raise ValueError(
+                f"pallas_pool={pool!r} runs in the folded forward's fused "
+                "stages; fold_bn=False has none (drop pallas_pool or keep "
+                "fold_bn=True)")
+        stages = resolve_fused_stages(self.fused_stages, arch=self.arch,
+                                      folded=self.fold_bn)
         if pool and not stages:
             raise ValueError(
                 f"pallas_pool={pool!r} needs a fused stage: fused_stages="
@@ -208,6 +232,10 @@ def quant_calibration(weights, cfg: ExtractConfig, dataset=None,
     ``"dataset"`` (the first ``cfg.quant_calib_clips`` clips of
     ``dataset``, center-sampled and preprocessed as extraction does)."""
     dev = resolve_device(device)
+    if not cfg.fold_bn:
+        raise ValueError(
+            "quant calibration runs over the FOLDED forward: it needs "
+            "fold_bn=True and raw weights with BatchNorm statistics")
     resolve_quant_fused_stages(cfg.fused_stages, arch=cfg.arch)  # refusals
     folded = _folded(weights, dataclasses.replace(cfg, quant="int8"))
     if cfg.quant_calib == "dataset":
@@ -257,6 +285,9 @@ def make_feature_fn(weights, cfg: ExtractConfig,
                 "act_max to recalibrate") from None
         net = QuantResNet(qvars, arch=cfg.arch, dtype=dtype,
                           fused_stages=stages)
+    elif not cfg.fold_bn:
+        net = UnfoldedResNet(weights, arch=cfg.arch, dtype=dtype,
+                             stem_s2d=cfg.stem_s2d)
     else:
         if cfg.stem_s2d:
             weights = space_to_depth_stem(weights)
@@ -281,6 +312,30 @@ def make_feature_fn(weights, cfg: ExtractConfig,
         return check_finite("features", feats.float().mean(dim=1))  # TSN
 
     return feature_fn
+
+
+class UnfoldedResNet(torch.nn.Module):
+    """The feature network without the BN fold (``fold_bn=False``): the
+    train model ``models.resnet.ResNet`` in inference mode over the raw
+    weights, frames ``[..., H, W, 3]`` -> features ``[..., D]`` f32. Its
+    stem is ``models.fused_train.ResNetStem`` (the space-to-depth conv of
+    the 7x7 kernel under ``stem_s2d``)."""
+
+    def __init__(self, weights, *, arch: str = "resnet50",
+                 dtype=torch.bfloat16, stem_s2d: bool = False):
+        super().__init__()
+        self.model = ResNet(arch, dtype=dtype)
+        self.model.load_state_dict(check_state_dict(weights, arch,
+                                                    strict=False))
+        self.model.to(memory_format=torch.channels_last).eval()
+        self.stem = ResNetStem(self.model, s2d=stem_s2d)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        lead = frames.shape[:-3]
+        x = self.stem(frames.reshape(-1, *frames.shape[-3:]))
+        for _, _, t in block_names(self.model.arch):
+            x = self.model.run_block(t, x)
+        return self.model.head(x).reshape(*lead, -1)
 
 
 # Process-wide host input-buffer ring for the pooled decode, as the

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eov_tpu_torch.models import get_arch
-from eov_tpu_torch.models.resnet import block_names
+from eov_tpu_torch.models.resnet import block_names, s2d_frames
 from eov_tpu_torch.ops.bottleneck import (fused_basic_stack,
                                           fused_bottleneck_stack,
                                           fused_pool_bottleneck_stack,
@@ -63,12 +63,15 @@ def use_full_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def resolve_fused_stages(fused_stages, *, arch: str) -> tuple:
+def resolve_fused_stages(fused_stages, *, arch: str,
+                         folded: bool = True) -> tuple:
     """"auto" -> (1,) for bottleneck archs on every device (the op picks
     kernel or plain version by the tensor's device), () for basic archs, as
     the reference resolves it. Explicit tuples are honored on both
-    families."""
+    families. Without the BN fold (``folded=False``) nothing fuses: ()."""
     stage_sizes, bottleneck = get_arch(arch)
+    if not folded:
+        return ()
     if fused_stages == "auto":
         return (1,) if bottleneck else ()
     stages = tuple(int(s) for s in (fused_stages or ()))
@@ -180,13 +183,7 @@ class FoldedResNet(nn.Module):
         channels_last memory)."""
         if not self.stem_s2d:
             return torch.relu(self._conv("stem", x.permute(0, 3, 1, 2), 2, 3))
-        b, h, w, c = x.shape
-        if h % 2 or w % 2:
-            raise ValueError(f"stem_s2d needs even frame sizes, got {h}x{w}")
-        x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
-        # Asymmetric padding (2, 1): F.conv2d pads symmetrically only.
-        return torch.relu(self._conv("stem", F.pad(x, (2, 1, 2, 1))))
+        return torch.relu(self._conv("stem", s2d_frames(x)))
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         if self.dtype == torch.float32 and frames.is_cuda:

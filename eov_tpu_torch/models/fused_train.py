@@ -15,6 +15,14 @@ module names).
 Only the ``partial_bn=True`` regime is supported: the stage BNs must be
 frozen (constant affines) for the fused backward to be exact; the train
 step enforces it when it resolves ``fused_stage1``.
+
+The stem's two train levers (``TrainConfig.stem_s2d`` / ``pool_vjp``,
+the reference's ``ResNetStem(s2d=, pool_vjp=)``): ``_S2DConv1`` computes
+the 7x7/s2 stem conv by the space-to-depth rewrite from the ORIGINAL
+``conv1.weight`` [64, 3, 7, 7], refolded inside the forward, so autograd
+gives that parameter's own gradient and the checkpoint and optimizer do
+not change; ``pool_vjp`` runs the stem pool through
+``ops.pool.maxpool_3x3_s2_vjp``.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from eov_tpu_torch.models.resnet import ResNet
+from eov_tpu_torch.models.resnet import ResNet, s2d_frames, s2d_kernel
 from eov_tpu_torch.ops.bottleneck_train import (bottleneck_stack_train,
                                                 pack_train_block)
+from eov_tpu_torch.ops.pool import maxpool_3x3_s2_vjp
 
 __all__ = ["ResNetStem", "ResNetSlice", "stage_block_specs", "FusedStack"]
 
@@ -40,11 +50,36 @@ class _View(nn.Module):
         object.__setattr__(self, "model", model)
 
 
-class ResNetStem(_View):
-    """conv1 -> bn1 (the one BN that trains) -> relu -> 3x3/s2 maxpool."""
+class _S2DConv1(_View):
+    """The stem conv of ``model.conv1`` through the space-to-depth rewrite:
+    NHWC [N, H, W, 3] (H, W even) -> NCHW [N, O, H/2, W/2] in the compute
+    dtype, the 7x7/s2/p3 conv's value up to summation order."""
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        return self.model.stem(x_nhwc)
+        conv = self.model.conv1
+        return F.conv2d(s2d_frames(x_nhwc).to(conv.dtype),
+                        s2d_kernel(conv.weight).to(conv.dtype))
+
+
+class ResNetStem(_View):
+    """conv1 -> bn1 (the one BN that trains) -> relu -> 3x3/s2 maxpool;
+    ``s2d`` computes conv1 by ``_S2DConv1``, ``pool_vjp`` pools through
+    ``ops.pool.maxpool_3x3_s2_vjp``."""
+
+    def __init__(self, model: ResNet, s2d: bool = False,
+                 pool_vjp: bool = False):
+        super().__init__(model)
+        self.s2d, self.pool_vjp = s2d, pool_vjp
+
+    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        m = self.model
+        x = x_nhwc.to(m.dtype)
+        x = (_S2DConv1(m)(x) if self.s2d
+             else m.conv1(x.permute(0, 3, 1, 2)))
+        x = torch.relu(m.bn1(x))
+        if not self.pool_vjp:
+            return F.max_pool2d(x, 3, 2, 1)  # implicit -inf padding
+        return maxpool_3x3_s2_vjp(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class ResNetSlice(_View):

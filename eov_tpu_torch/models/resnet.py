@@ -60,7 +60,8 @@ from torch.utils.checkpoint import checkpoint
 from eov_tpu_torch.models import get_arch
 
 __all__ = ["from_jax_variables", "load_state_dict", "check_state_dict",
-           "random_state_dict", "space_to_depth_stem", "fold_batchnorm",
+           "random_state_dict", "space_to_depth_stem", "s2d_kernel",
+           "s2d_frames", "fold_batchnorm",
            "block_names",
            "Conv", "BatchNorm", "Bottleneck", "BasicBlock", "ResNet"]
 
@@ -227,12 +228,31 @@ def space_to_depth_stem(sd: Mapping) -> dict:
     out = dict(sd)
     k = out["conv1.weight"]
     if tuple(k.shape[1:]) == (3, 7, 7):
-        k = F.pad(k, (1, 0, 1, 0))  # [O, 3, 8, 8]
-        o = k.shape[0]
-        # [o, c, a, dy, b, dx] -> [o, dy, dx, c, a, b]
-        k = k.reshape(o, 3, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
-        out["conv1.weight"] = k.reshape(o, 12, 4, 4).contiguous()
+        out["conv1.weight"] = s2d_kernel(k).contiguous()
     return out
+
+
+def s2d_kernel(weight: torch.Tensor) -> torch.Tensor:
+    """[O, 3, 7, 7] -> [O, 12, 4, 4] (see ``space_to_depth_stem``);
+    differentiable, so the train stem refolds its 7x7 parameter with it."""
+    o = weight.shape[0]
+    k = F.pad(weight, (1, 0, 1, 0))  # [O, 3, 8, 8]
+    # [o, c, a, dy, b, dx] -> [o, dy, dx, c, a, b]
+    k = k.reshape(o, 3, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return k.reshape(o, 12, 4, 4)
+
+
+def s2d_frames(x_nhwc: torch.Tensor) -> torch.Tensor:
+    """NHWC frames [N, H, W, C] (H, W even) -> the space-to-depth input of
+    the 4x4 stem conv, NCHW [N, 4C, H/2, W/2] in the (dy, dx, c) channel
+    order of ``s2d_kernel``, padded (2, 1) on each spatial axis (F.conv2d
+    pads symmetrically only)."""
+    b, h, w, c = x_nhwc.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"stem_s2d needs even frame sizes, got {h}x{w}")
+    x = x_nhwc.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, h // 2, w // 2, 4 * c).permute(0, 3, 1, 2)
+    return F.pad(x, (2, 1, 2, 1))
 
 
 def _fold(sd, conv: str, bn: str, eps: float) -> dict:

@@ -7,6 +7,16 @@ is >= 0, as the post-ReLU stem map is; the contract is the caller's and is
 not checked, as in the reference. The CUDA kernel is
 ``csrc/maxpool_s2.cu``; the plain version below is its oracle and the CPU
 path. ``maxpool_3x3_s2_nonneg`` picks by the tensor's device.
+
+``maxpool_3x3_s2_vjp`` is the train stem's pool with the reference's
+custom backward (``eov_tpu/ops/pool.py:maxpool_3x3_s2_vjp``, an XLA op,
+not a Pallas kernel): the forward is the plain 3x3/s2/p1 max-pool with
+-inf padding; the backward routes each window's cotangent to the FIRST
+maximal tap in row-major (dy, dx) order and sums the nine taps' parts in
+that order in the cotangent's dtype, so ties (whole zero windows after the
+stem ReLU) and the rounding of overlapping windows' sums are the
+reference's, bit for bit. ``F.max_pool2d``'s own backward routes ties by
+its own rule.
 """
 
 from __future__ import annotations
@@ -18,7 +28,8 @@ import torch.nn.functional as F
 
 from eov_tpu_torch.ops import _cuda
 
-__all__ = ["maxpool_3x3_s2_nonneg", "maxpool_plain", "maxpool_cuda"]
+__all__ = ["maxpool_3x3_s2_nonneg", "maxpool_plain", "maxpool_cuda",
+           "maxpool_3x3_s2_vjp"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -78,3 +89,46 @@ def maxpool_3x3_s2_nonneg(x: torch.Tensor) -> torch.Tensor:
 
 
 maxpool_3x3_s2_nonneg.launches = 0
+
+
+class _MaxPoolVJP(torch.autograd.Function):
+    """NHWC 3x3/s2/p1 max-pool with the reference's first-max backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1)  # -inf padding
+        y = y.permute(0, 2, 3, 1).contiguous()
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        n, h, w, c = x.shape
+        oh, ow = y.shape[1], y.shape[2]
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1), value=float("-inf"))
+        # Padded input frame, one row/column larger for odd H/W, as the
+        # reference's interior-dilated scatter lands.
+        dxp = torch.zeros(n, 2 * oh + 2, 2 * ow + 2, c, dtype=g.dtype,
+                          device=g.device)
+        seen = None
+        for dy in range(3):
+            for dx in range(3):
+                # Tap (dy, dx) of every window, at output resolution.
+                tap = xp[:, dy:dy + 2 * oh - 1:2, dx:dx + 2 * ow - 1:2]
+                eq = tap == y
+                first = eq if seen is None else eq & ~seen
+                seen = eq if seen is None else seen | eq
+                # Back to input coordinates (stride 2, offset by the tap),
+                # added in g's dtype in tap order.
+                dxp[:, dy:dy + 2 * oh - 1:2, dx:dx + 2 * ow - 1:2] += \
+                    torch.where(first, g, torch.zeros((), dtype=g.dtype))
+        return dxp[:, 1:h + 1, 1:w + 1].contiguous()
+
+
+def maxpool_3x3_s2_vjp(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [N, H, W, C] -> [N, (H-1)//2+1, (W-1)//2+1, C], any sign, any
+    H/W; differentiable with the reference's tie routing (module doc)."""
+    if x.dim() != 4:
+        raise ValueError(f"expected NHWC [N, H, W, C], got {tuple(x.shape)}")
+    return _MaxPoolVJP.apply(x)

@@ -29,8 +29,16 @@ The dropout mask cannot be the reference's (flax derives it through its own
 RNG plumbing); it comes from a ``torch.Generator`` seeded from
 ``fold_in(step_key, 1)``.
 
-Not ported yet, and refused rather than ignored: ``stem_s2d='on'``,
-``pool_vjp='on'`` and multi-process (pod) training.
+The stem's two levers, on the fused route only as in the reference:
+``stem_s2d='on'`` computes the stem conv by the space-to-depth rewrite of
+its own 7x7 parameter (``models.fused_train._S2DConv1``; even crops only),
+``pool_vjp='on'`` pools through ``ops.pool.maxpool_3x3_s2_vjp`` (the
+reference's first-max backward). ``'auto'`` is off for both, as in the
+reference. Neither changes the parameters, the checkpoint or the
+optimizer.
+
+Not ported yet, and refused rather than ignored: multi-process (pod)
+training.
 """
 
 from __future__ import annotations
@@ -79,8 +87,10 @@ class TrainConfig:
     augment: str = "multiscale"       # 'multiscale' | 'randomcrop'
     fused_stage1: str = "auto"        # 'auto' | 'on' | 'off' (see above)
     fused_stage2: str = "auto"        # stride-1 tail of stage 2
-    stem_s2d: str = "auto"            # 'on' is not ported yet
-    pool_vjp: str = "auto"            # 'on' is not ported yet
+    stem_s2d: str = "auto"            # stem conv by space-to-depth; 'auto'
+                                      # = off
+    pool_vjp: str = "auto"            # stem pool with the first-max VJP;
+                                      # 'auto' = off
     compute_dtype: str = "bfloat16"
     scale_size: int = 256
     crop_size: int = 224
@@ -130,11 +140,12 @@ def resolve_fused(cfg: TrainConfig,
     if cfg.fused_stage2 == "on" and not fuse:
         raise ValueError("fused_stage2='on' requires fused_stage1")
     for f in ("stem_s2d", "pool_vjp"):
-        if getattr(cfg, f) == "on":
-            if not fuse:
-                raise ValueError(f"{f}='on' is implemented on the fused stem "
-                                 "path only (requires fused_stage1)")
-            raise NotImplementedError(f"{f}='on' is not ported yet")
+        if getattr(cfg, f) == "on" and not fuse:
+            raise ValueError(f"{f}='on' is implemented on the fused stem "
+                             "path only (requires fused_stage1)")
+    if cfg.stem_s2d == "on" and cfg.crop_size % 2:
+        raise ValueError(f"stem_s2d='on' needs an even crop_size, got "
+                         f"{cfg.crop_size}")
     return fuse, fuse2
 
 
@@ -200,7 +211,8 @@ def make_train_step(cfg: TrainConfig,
             return model(flat, gen)
         sizes = model.stage_sizes
         width = model.conv1.weight.shape[0]
-        x = ResNetStem(model)(flat)
+        x = ResNetStem(model, s2d=cfg.stem_s2d == "on",
+                       pool_vjp=cfg.pool_vjp == "on")(flat)
         x = FusedStack(model, [f"layer1.{j}" for j in range(sizes[0])])(x)
         if fuse2:
             x = model.run_block("layer2.0", x)

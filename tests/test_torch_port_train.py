@@ -347,9 +347,13 @@ def test_config_refusals():
         with pytest.raises(ValueError, match="fused stem path"):
             ttr.make_train_step(ttr.TrainConfig(fused_stage1="off",
                                                 **{f: "on"}), "cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ttr.make_train_step(ttr.TrainConfig(fused_stage1="on",
-                                                **{f: "on"}), "cpu")
+        # Ported: both levers build on the fused route.
+        ttr.make_train_step(ttr.TrainConfig(fused_stage1="on", **{f: "on"}),
+                            "cpu")
+    with pytest.raises(ValueError, match="even crop_size"):
+        ttr.make_train_step(ttr.TrainConfig(fused_stage1="on",
+                                            stem_s2d="on", crop_size=223),
+                            "cpu")
     # 'auto' resolves on only on a CUDA device, and off for basic archs.
     assert ttr.resolve_fused(ttr.TrainConfig(), "cpu") == (False, False)
     assert ttr.resolve_fused(ttr.TrainConfig(), "cuda") == (True, True)
