@@ -85,7 +85,25 @@ Phases (any failure exits non-zero):
    1-3 by classify and episode, a RAW decode rate; and a ``fold_bn=False``
    feature program on phase 4's 32 clips (kernel 1 crops) at per-clip
    cosine >= 0.999 (bf16) to the folded one, both timed;
-11. print the ``kernels`` JSON line, the card line, and last
+11. the multi-GPU path (``multi_gpu_path``): (a) 2 ranks spawned on the
+   one card over gloo (NCCL refuses two ranks a device; with more cards,
+   up to 4 ranks over NCCL, one a card) run the sharded extraction of the
+   main path's 72 clips at data = world and at frame 2, int8 with rank
+   0's broadcast scales, 600 episodes of sharded eval (plain and
+   embodied) and 3 sharded train steps at the ``TrainConfig`` defaults
+   (then one in f32), each held against single-GPU runs on the same
+   inputs: the same clips and labels, per-clip cosine >= 0.99 and the
+   store's ||a - b|| / ||b|| <= 1e-3 (a wrong scale or a half-segment mean
+   reads above it), int8 bit-equal, ``per_episode`` bit-equal, the f32
+   loss within relative 1e-4;
+   kernels 1, 2, 3, 7, 8 and 9 must launch on the ranks; a rank that fails
+   or hangs fails the run; (b) ``extract``, ``eval`` and ``train
+   --multichip`` under ``torchrun`` over NCCL (one rank a card), then
+   ``test``, and the multichip store's accuracy equal to a store's written
+   without ``--multichip``; (c) the parity harness's self-check with its
+   pipeline B on the card (a ``null`` line with the reason if PIL does not
+   import). ``--only multi_gpu_path`` runs the build and this phase alone;
+12. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds kernel 6 (the stem max-pool) equal to its plain
@@ -2683,6 +2701,539 @@ def gpu_vs_cpu_step(dev):
             "stats 1e-5"}
 
 
+# ------------------------------------------------------------ multi-GPU
+
+MULTI_TIMEOUT_S = 300  # one spawned group or one torchrun command
+
+
+def _render(ds, items) -> list:
+    """``ds.get_frames`` of each (record, indices), on 8 threads (numpy's
+    array loops release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda a: ds.get_frames(*a), items))
+
+
+class _RenderedClips:
+    """``main_path``'s 12 x 6 synthetic clips at 256x320, their 8 center
+    frames rendered once into ``path`` (an .npz): a dataset for the ranks,
+    which would otherwise each render them again."""
+
+    def __init__(self, path: str):
+        from eov_tpu_torch.data.datasets import SyntheticVideoDataset
+
+        ds = SyntheticVideoDataset(n_classes=12, clips_per_class=6,
+                                   height=256, width=320, seed=0)
+        self.records, self.class_names = ds.records, ds.class_names
+        if not os.path.exists(path):
+            from eov_tpu_torch.data.segments import center_indices_np
+
+            idx = np.stack([center_indices_np(r.num_frames, 8)
+                            for r in ds.records])
+            np.savez(path, idx=idx, frames=np.stack(_render(
+                ds, list(zip(ds.records, idx)))))
+        z = np.load(path)
+        self.frames = z["frames"]
+        self._pos = {r.video_id: (n, {int(f): p for p, f in enumerate(i)})
+                     for n, (r, i) in enumerate(zip(ds.records, z["idx"]))}
+
+    def get_frames(self, record, indices) -> np.ndarray:
+        n, pos = self._pos[record.video_id]
+        return self.frames[n, [pos[int(i)] for i in indices]]
+
+
+def _multi_kernels():
+    from eov_tpu_torch.ops import (bottleneck, bottleneck_int8,
+                                   bottleneck_train, crop_normalize,
+                                   similarity)
+
+    return {"crop_normalize": crop_normalize.crop_normalize,
+            "bottleneck_stack": bottleneck.fused_bottleneck_stack,
+            "bottleneck_int8": bottleneck_int8.fused_bottleneck_stack_int8,
+            "episode_scores": similarity.episode_class_scores,
+            "bottleneck_train_fwd": bottleneck_train.train_stack_forward,
+            "bottleneck_train_bwd": bottleneck_train.train_stack_backward}
+
+
+def _virtual_bank(dev):
+    """A seeded virtual support bank for the 12 classes (4 slots, masked
+    by counts), the same in every process."""
+    from eov_tpu_torch.eval import FeatureTable
+
+    g = torch.Generator().manual_seed(5)
+    return FeatureTable(torch.randn(12, 4, 2048, generator=g).to(dev),
+                        torch.randint(0, 5, (12,), generator=g).to(dev))
+
+
+def _multi_eval_cfgs():
+    from eov_tpu_torch.eval import EvalConfig
+
+    plain = EvalConfig(n_way=5, k_shot=1, n_query=1, n_episodes=600,
+                       episodes_per_step=64)
+    return {"plain": plain,
+            "embodied": dataclasses.replace(plain, embodied=True)}
+
+
+def _train_steps(cfg, dev, frames, labels, n_steps, mesh=None):
+    """``n_steps`` steps of a fresh state on one fixed batch (keys 11..);
+    the losses."""
+    from eov_tpu_torch import prng
+    from eov_tpu_torch import train as tr
+
+    state = tr.create_train_state(cfg, dev)
+    step = tr.make_train_step(cfg, dev, mesh=mesh)
+    losses = []
+    for i in range(n_steps):
+        state, m = step(state, frames, labels, prng.key(11 + i))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _rank_work(rank: int, dev, work: str) -> dict:
+    """One rank's part (a): sharded extraction at data = world and at
+    frame 2 (where the world is even), int8 with rank 0's scales, the
+    sharded eval (plain and embodied), the sharded train steps."""
+    from eov_tpu_torch import train as tr
+    from eov_tpu_torch.data.store import FeatureStore
+    from eov_tpu_torch.extract import (ExtractConfig, extract_features,
+                                       quant_calibration)
+    from eov_tpu_torch.models.resnet import random_state_dict
+    from eov_tpu_torch.parallel import distributed as pdist
+    from eov_tpu_torch.parallel.mesh import make_mesh
+    from eov_tpu_torch.parallel.sharded import evaluate_sharded
+
+    kernels = _multi_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    world = pdist.world_size()
+    ds = _RenderedClips(os.path.join(work, "clips.npz"))
+    weights = random_state_dict("resnet50", seed=0)
+    cfg = ExtractConfig(num_segments=8, batch_clips=32,
+                        compute_dtype="bfloat16")  # tpu_batched
+    meshes = {"data": make_mesh(world, 1)}
+    if world % 2 == 0:
+        meshes["frame2"] = make_mesh(world // 2, 2)
+    res, secs = {"world": world}, {}
+    for name, mesh in meshes.items():
+        store = FeatureStore(os.path.join(work, name),
+                             class_names=ds.class_names,
+                             process_index=mesh.data_index, quant=None)
+        t0 = time.perf_counter()
+        res[f"stats_{name}"] = extract_features(ds, weights, store, cfg,
+                                                device=dev, mesh=mesh)
+        secs[f"extract_{name}"] = time.perf_counter() - t0
+    cfg8 = dataclasses.replace(cfg, quant="int8")
+    t0 = time.perf_counter()
+    act = quant_calibration(weights, cfg8, device=dev) if rank == 0 else None
+    act = pdist.broadcast_object(act)
+    mesh = meshes["data"]
+    store = FeatureStore(os.path.join(work, "int8"),
+                         class_names=ds.class_names,
+                         process_index=mesh.data_index, quant="int8")
+    store.set_quant_calib(act)
+    res["stats_int8"] = extract_features(ds, weights, store, cfg8,
+                                         device=dev, act_max=act, mesh=mesh)
+    res["act_max"] = act
+    secs["extract_int8"] = time.perf_counter() - t0
+
+    table = FeatureStore(os.path.join(work, "data")).to_table(dev)
+    for name, ecfg in _multi_eval_cfgs().items():
+        t0 = time.perf_counter()
+        res[f"eval_{name}"] = evaluate_sharded(
+            table, ecfg, mesh, virtual=_virtual_bank(dev)).per_episode
+        secs[f"eval_{name}"] = time.perf_counter() - t0
+
+    z = np.load(os.path.join(work, "train_batch.npz"))
+    rows = pdist.host_local_rows(mesh, len(z["labels"]))
+    frames = torch.from_numpy(z["frames"][rows])
+    labels = torch.from_numpy(z["labels"][rows])
+    t0 = time.perf_counter()
+    res["train_bf16"] = _train_steps(tr.TrainConfig(), dev, frames, labels,
+                                     3, mesh)
+    res["train_f32"] = _train_steps(
+        tr.TrainConfig(compute_dtype="float32"), dev, frames, labels, 1,
+        mesh)
+    secs["train"] = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    res["launches"] = {n: k.launches for n, k in kernels.items()}
+    res["s"] = secs
+    return res
+
+
+def _rank_main(rank: int, world: int, backend: str, port: int, dev_index: int,
+               work: str) -> None:
+    """A spawned rank: its process group, its part, its results file."""
+    from eov_tpu_torch.models.folded_infer import use_full_f32
+    from eov_tpu_torch.parallel import distributed as pdist
+
+    dev = torch.device("cuda", dev_index)
+    torch.cuda.set_device(dev)
+    use_full_f32()
+    torch.backends.cudnn.deterministic = True
+    pdist.initialize(backend, init_method=f"tcp://localhost:{port}",
+                     world_size=world, rank=rank, device=dev)
+    res = _rank_work(rank, dev, work)
+    torch.save(res, os.path.join(work, f"rank{rank}.pt"))
+    pdist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(world: int, backend: str, work: str) -> list:
+    """Start the ranks (spawn: CUDA cannot be forked); returns the
+    processes."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = _free_port()
+    n_dev = torch.cuda.device_count()
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, backend, port, r if n_dev > 1 else 0, work), daemon=True)
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _join_ranks(procs, work: str) -> list:
+    """Join every rank within MULTI_TIMEOUT_S; a rank that fails or hangs
+    fails the run (every rank is stopped first)."""
+    deadline = time.perf_counter() + MULTI_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        fail(f"multi-GPU ranks failed: exit codes {codes}, hung {hung}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def _cos_min(a: np.ndarray, b: np.ndarray) -> float:
+    return float(((a * b).sum(-1) / np.linalg.norm(a, axis=-1)
+                  / np.linalg.norm(b, axis=-1)).min())
+
+
+def _rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    """||a - b|| / ||b|| over a store's whole feature matrix [clips, D]:
+    scale-sensitive, where a cosine is not. A wrong scale reads 0.5 or
+    1.0; an error of at least e in every clip reads at least e."""
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# The sharded stores' bar on _rel_l2 against the single-GPU store, between
+# what the sharded programs read and what their faults read: a wrong
+# segment divisor scales every clip (0.5 or 1.0), and a frame rank that
+# averages only its own half of the segments reads ``_half_segment_rel``
+# (measured above the bar in every run, or the run fails: these synthetic
+# clips' segments are close). On H100s (NVIDIA H100 80GB HBM3, 700 W) the
+# bf16 stores read 2.2e-4 with 2 ranks sharing one card and 6.5e-4 with 4
+# NCCL ranks on four (7.2e-4 and 7.6e-4 at the worst clip; int8 0), the
+# half-segment mean 6.6e-3 (2.6e-3 at its nearest clip).
+SHARDED_REL_BAR = 1e-3
+
+
+def _half_segment_rel(ds, weights, cfg, dev) -> float:
+    """The check's power against a missing frame all-reduce: _rel_l2 of
+    the mean of the first K/2 segments against the mean of all K, over the
+    single-GPU segment features of every clip."""
+    from eov_tpu_torch.extract import make_segment_fn
+
+    seg_fn = make_segment_fn(weights, cfg, dev)
+    k, half, full = cfg.num_segments, [], []
+    for i in range(0, len(ds.frames), cfg.batch_clips):
+        with torch.inference_mode():
+            seg = seg_fn(torch.from_numpy(ds.frames[i:i + cfg.batch_clips]))
+        seg = seg.float().cpu().numpy()
+        half.append(seg[:, :k // 2].mean(1))
+        full.append(seg.mean(1))
+    return _rel_l2(np.concatenate(half), np.concatenate(full))
+
+
+def _hold_store(name: str, got: dict, want: dict, cos_bar: float,
+                bit_equal: bool = False) -> dict:
+    """A sharded store against the single-GPU extraction: the same clips
+    and labels exactly; each clip at cosine >= ``cos_bar``, the store at
+    _rel_l2 <= SHARDED_REL_BAR; with ``bit_equal``, every clip bit for
+    bit. The readings are printed before any bar is held."""
+    if set(got) != set(want) or any(got[v][1] != want[v][1] for v in want):
+        fail(f"multi-GPU {name} store holds other clips or labels than the "
+             f"single-GPU extraction ({len(got)} vs {len(want)} clips)")
+    ids = sorted(want)
+    a = np.stack([got[v][0] for v in ids])
+    b = np.stack([want[v][0] for v in ids])
+    res = {"clips": len(ids), "cosine_min": _cos_min(a, b),
+           "rel_l2": _rel_l2(a, b), "rel_l2_bar": SHARDED_REL_BAR,
+           "clip_rel_l2_max": float((np.linalg.norm(a - b, axis=-1)
+                                     / np.linalg.norm(b, axis=-1)).max()),
+           "max_abs_err": float(np.abs(a - b).max()),
+           "bit_equal_clips": int(sum(np.array_equal(got[v][0], want[v][0])
+                                      for v in ids))}
+    print(json.dumps({f"multi_gpu_store_{name}": res}), flush=True)
+    if res["cosine_min"] < cos_bar or res["rel_l2"] > SHARDED_REL_BAR:
+        fail(f"multi-GPU {name} features disagree with the single-GPU "
+             f"extraction: {res} (cosine bar {cos_bar})")
+    if bit_equal and res["bit_equal_clips"] != len(ids):
+        fail(f"multi-GPU {name} features: not every clip bit-equal to the "
+             f"single-GPU extraction: {res}")
+    return res
+
+
+def _api_ranks(dev) -> dict:
+    """Part (a): the API on spawned ranks against single-GPU runs on the
+    same inputs."""
+    from eov_tpu_torch import train as tr
+    from eov_tpu_torch.data.datasets import SyntheticVideoDataset
+    from eov_tpu_torch.data.store import FeatureStore, MemoryFeatureStore
+    from eov_tpu_torch.eval import evaluate
+    from eov_tpu_torch.extract import ExtractConfig, extract_features
+    from eov_tpu_torch.models.resnet import random_state_dict
+
+    work = os.path.join(WORK, "multi_gpu")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    n_dev = torch.cuda.device_count()
+    world, backend = (2, "gloo") if n_dev == 1 else (min(n_dev, 4), "nccl")
+    t0 = time.perf_counter()
+    ds = _RenderedClips(os.path.join(work, "clips.npz"))
+    tds = SyntheticVideoDataset(n_classes=64, clips_per_class=2, height=256,
+                                width=320, seed=0)
+    rng = np.random.default_rng(0)
+    recs = [tds.records[i] for i in rng.permutation(len(tds.records))[:32]]
+    items = [(r, tr._tsn_train_indices(rng, r.num_frames, 3)) for r in recs]
+    np.savez(os.path.join(work, "train_batch.npz"),
+             frames=np.stack(_render(tds, items)),
+             labels=np.array([r.label for r in recs]))
+    render_s = time.perf_counter() - t0
+    print(json.dumps({"multi_gpu_ranks": {
+        "backend": backend, "world": world,
+        "ranks_per_device": world if n_dev == 1 else 1}}), flush=True)
+
+    t0 = time.perf_counter()
+    procs = _spawn_ranks(world, backend, work)
+    # The single-GPU runs on the same inputs, while the ranks work.
+    weights = random_state_dict("resnet50", seed=0)
+    cfg = ExtractConfig(num_segments=8, batch_clips=32,
+                        compute_dtype="bfloat16")
+    single = MemoryFeatureStore(class_names=ds.class_names)
+    extract_features(ds, weights, single, cfg, device=dev)
+    half_rel = _half_segment_rel(ds, weights, cfg, dev)
+    print(json.dumps({"multi_gpu_half_segment_rel_l2": half_rel}),
+          flush=True)
+    z = np.load(os.path.join(work, "train_batch.npz"))
+    frames, labels = torch.from_numpy(z["frames"]), torch.from_numpy(
+        z["labels"])
+    # train_path's setting (cuDNN free to pick nondeterministic
+    # algorithms), twice: its run-to-run spread.
+    rerun = [_train_steps(tr.TrainConfig(), dev, frames, labels, 3)
+             for _ in range(2)]
+    torch.backends.cudnn.deterministic = True  # as the ranks run
+    try:
+        bf16 = _train_steps(tr.TrainConfig(), dev, frames, labels, 3)
+        f32 = _train_steps(tr.TrainConfig(compute_dtype="float32"), dev,
+                           frames, labels, 1)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ranks = _join_ranks(procs, work)
+    group_s = time.perf_counter() - t0
+
+    r0 = ranks[0]
+    zero = {n: c for n, c in r0["launches"].items() if c == 0}
+    if zero:
+        fail(f"kernels never launched on the multi-GPU path: {zero}")
+    want = single.load_all()
+    out = {"backend": backend, "world": world, "render_s": render_s,
+           "group_s": group_s, "rank0_s": r0["s"],
+           "launches_rank0": r0["launches"],
+           "half_segment_rel_l2": half_rel}
+    for name in ("data", "frame2"):
+        if f"stats_{name}" in r0:
+            out[f"extract_{name}"] = _hold_store(
+                name, FeatureStore(os.path.join(work, name)).load_all(),
+                want, 0.99)
+    if half_rel <= SHARDED_REL_BAR:
+        fail(f"a half-segment mean reads {half_rel} <= the sharded stores' "
+             f"bar {SHARDED_REL_BAR}: the check could not catch it")
+    act = r0["act_max"]
+    if any(r["act_max"] != act for r in ranks):
+        fail("multi-GPU int8: the ranks quantized with different scales")
+    single8 = MemoryFeatureStore(class_names=ds.class_names)
+    extract_features(ds, weights, single8, dataclasses.replace(
+        cfg, quant="int8"), device=dev, act_max=act)
+    out["extract_int8"] = _hold_store(
+        "int8", FeatureStore(os.path.join(work, "int8")).load_all(),
+        single8.load_all(), 0.99, bit_equal=True)
+
+    table = FeatureStore(os.path.join(work, "data")).to_table(dev)
+    for name, ecfg in _multi_eval_cfgs().items():
+        ref = evaluate(table, ecfg, virtual=_virtual_bank(dev)).per_episode
+        for r in ranks:
+            if not np.array_equal(r[f"eval_{name}"], ref):
+                fail(f"multi-GPU {name} eval: per_episode differs from the "
+                     f"single-GPU evaluate in "
+                     f"{int((r[f'eval_{name}'] != ref).sum())} of 600")
+        out[f"eval_{name}"] = {"per_episode_bit_equal": True,
+                               "mean_acc": float(ref.mean())}
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    f32_rel = max(rel(r["train_f32"], f32) for r in ranks)
+    if f32_rel > 1e-4:
+        fail(f"multi-GPU f32 train step: loss rel {f32_rel} > 1e-4 against "
+             "the single-GPU step")
+    # bf16: the train parity tests' bar. Sharding reorders the stem BN's
+    # and the gradients' sums; the single-GPU step itself repeats bit for
+    # bit (train_path_rerun_loss_rel_bf16 beside it).
+    bf16_rel = max(rel(r["train_bf16"], bf16) for r in ranks)
+    rerun_rel = rel(rerun[1], rerun[0])
+    if not bf16_rel <= 1e-4:
+        fail(f"multi-GPU bf16 train steps: loss rel {bf16_rel} > 1e-4 "
+             "against the single-GPU steps")
+    out["train"] = {"losses_bf16": r0["train_bf16"],
+                    "losses_bf16_single": bf16,
+                    "loss_rel_bf16": bf16_rel,
+                    "train_path_rerun_loss_rel_bf16": rerun_rel,
+                    "losses_bf16_rerun": rerun,
+                    "loss_f32": r0["train_f32"], "loss_f32_single": f32,
+                    "loss_rel_f32": f32_rel}
+    return out
+
+
+def _cli_args(work: str) -> dict:
+    """Part (b)'s command lines: the clips of extract (12, one full batch
+    with and without --multichip), eval's protocol, train's run."""
+    syn = ["--device", "cuda", "--synthetic-height", "256",
+           "--synthetic-width", "320"]
+    return {"clips": [*syn, "--preset", "tpu_batched", "--synthetic-classes",
+                      "6", "--synthetic-clips", "2", "--batch", "12"],
+            "eval": ["--preset", "tpu_batched", "--device", "cuda",
+                     "--n-episodes", "600"],
+            "train": [*syn, "--synthetic-classes", "4", "--synthetic-clips",
+                      "2", "--batch", "4"],
+            "multi": os.path.join(work, "multi"),
+            "single": os.path.join(work, "single"),
+            "run": os.path.join(work, "run")}
+
+
+def _torchrun_chain(work: str) -> dict:
+    """Part (b)'s torchrun commands in turn (extract --multichip -> eval
+    --multichip -> train --multichip, one rank a card over NCCL):
+    {command: (seconds, stdout lines)}. A command that fails or outlasts
+    MULTI_TIMEOUT_S fails the run, its ranks killed with it (its
+    session)."""
+    a = _cli_args(work)
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(min(torch.cuda.device_count(), 4)), "-m",
+           "eov_tpu_torch.cli"]
+    steps = (("extract", ["extract", "--multichip", *a["clips"], "--store",
+                          a["multi"]]),
+             ("eval", ["eval", "--multichip", *a["eval"], "--store",
+                       a["multi"]]),
+             ("train", ["train", "--multichip", *a["train"], "--out",
+                        a["run"], "--epochs", "1"]))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    done = {}
+    for name, argv in steps:
+        t0 = time.perf_counter()
+        p = subprocess.Popen(run + argv, env=env, cwd=ROOT, text=True,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             start_new_session=True)
+        try:
+            out, err = p.communicate(timeout=MULTI_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            p.communicate()
+            fail(f"torchrun {name} --multichip did not finish in "
+                 f"{MULTI_TIMEOUT_S} s")
+        if p.returncode:
+            fail(f"torchrun {name} --multichip exited {p.returncode}: "
+                 f"{err[-2000:]}")
+        done[name] = (time.perf_counter() - t0, out.strip().splitlines())
+    return done
+
+
+def _cli_ranks(work: str) -> dict:
+    """Part (b): the torchrun commands, then ``test`` of the run, and the
+    multichip store's accuracy against a store written without
+    --multichip."""
+    a = _cli_args(work)
+    chain = _torchrun_chain(work)
+    t0 = time.perf_counter()
+    test = json.loads(_quiet_cli(["test", *a["train"], "--params",
+                                  a["run"]])[-1])
+    _quiet_cli(["extract", *a["clips"], "--store", a["single"]])
+    acc_single = _quiet_cli(["eval", *a["eval"], "--store", a["single"]])[-1]
+    secs = {name: sec for name, (sec, _) in chain.items()}
+    secs["test_and_single_gpu"] = time.perf_counter() - t0
+    acc_multi = chain["eval"][1][-1]
+    if acc_multi != acc_single or not acc_multi.startswith("accuracy"):
+        fail(f"eval of the --multichip store ({acc_multi!r}) differs from "
+             f"the store written without it ({acc_single!r})")
+    if test["n"] != 8:
+        fail(f"test after train --multichip: {test}")
+    return {"nproc_per_node": min(torch.cuda.device_count(), 4),
+            "backend": "nccl", "s": secs,
+            "extract": chain["extract"][1][-1], "eval": acc_multi,
+            "eval_single_gpu_store": acc_single,
+            "train": chain["train"][1][-2:], "test": test}
+
+
+def _harness_check() -> dict | None:
+    """Part (c): the parity harness's self-check, pipeline B on the card
+    (PIL decides: without it the harness cannot run pipeline A)."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        print(json.dumps({"parity_harness": None,
+                          "reason": f"PIL does not import here: {e}"}),
+              flush=True)
+        return None
+    from argparse import Namespace
+
+    from eov_tpu_torch.tools import parity_harness as ph
+
+    rep = ph.run(Namespace(params=None, root=None, split=None, classes=4,
+                           clips_per_class=2, num_segments=2, scale=128,
+                           crop=112, dtype="float32", n_episodes=50, seed=0,
+                           device="cuda"))
+    if rep["feature_cosine_min"] < 0.999 or not rep["within_budget"]:
+        fail(f"parity harness self-check failed on the card: {rep}")
+    return rep
+
+
+def multi_gpu_path(dev, gpu) -> dict:
+    """(a) the multi-GPU API on spawned ranks, (b) the CLI under torchrun
+    over NCCL, (c) the parity harness, in turn; each part's seconds beside
+    the card."""
+    out = {}
+    t0 = time.perf_counter()
+    out["a_api_ranks"] = _api_ranks(dev)
+    print(json.dumps({"multi_gpu_part": "a_api_ranks",
+                      "s": time.perf_counter() - t0, "gpu": gpu}), flush=True)
+    t0 = time.perf_counter()
+    out["b_cli_torchrun"] = _cli_ranks(os.path.join(WORK, "multi_gpu_cli"))
+    print(json.dumps({"multi_gpu_part": "b_cli_torchrun",
+                      "s": time.perf_counter() - t0, "gpu": gpu}), flush=True)
+    t0 = time.perf_counter()
+    out["c_parity_harness"] = _harness_check()
+    print(json.dumps({"multi_gpu_part": "c_parity_harness",
+                      "s": time.perf_counter() - t0, "gpu": gpu}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test "
@@ -2711,6 +3262,12 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "nvcc_s": per_source}),
           flush=True)
     phase("build")
+    if sys.argv[1:] == ["--only", "multi_gpu_path"]:  # a quick re-check
+        print(json.dumps({"multi_gpu_path": multi_gpu_path(dev, gpu)}),
+              flush=True)
+        phase("multi_gpu_path")
+        print(card_line(), flush=True)
+        return 0
 
     rows = []
     for check in (check_crop, check_stack, check_matcher, check_int8_stack,
@@ -2753,6 +3310,9 @@ def main() -> int:
         dev, gpu, batch)}), flush=True)
     del batch
     phase("deploy_bench_path")
+    print(json.dumps({"multi_gpu_path": multi_gpu_path(dev, gpu)}),
+          flush=True)
+    phase("multi_gpu_path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     new = ("basic_stack", "maxpool_s2", "pool_bottleneck_stack")

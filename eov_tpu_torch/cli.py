@@ -61,7 +61,15 @@ extract, eval, classify, episode, train, test and bench run on the GPU
 ``--device cpu`` is given. Stores are interchangeable with the reference
 package's.
 
-Not ported yet, and refused: ``train --multichip`` (multi-GPU).
+``extract``, ``eval`` and ``train`` take ``--multichip``: one process per
+GPU under torchrun, e.g. ``python -m torch.distributed.run --standalone
+--nproc_per_node 4 -m eov_tpu_torch.cli extract --multichip ...``, over
+the preset's ('data', 'frame') mesh (``parallel/``): extract shards the
+clips (each data row writes its own namespace of the one store), eval the
+episodes, train the global batch. Without a launcher ``--multichip`` runs
+a world of 1 on one visible GPU (or the CPU) and refuses to run with
+several visible GPUs, naming the torchrun command (a single process would
+leave all but one idle).
 """
 
 from __future__ import annotations
@@ -254,41 +262,87 @@ def _extract_config(args):
         raise SystemExit(str(e)) from None
 
 
+def _multichip(args, n_frame: int = 1):
+    """``--multichip``: (the ('data', 'frame') mesh over the world, this
+    rank's device). Under a launcher (torchrun) the process group comes up
+    from its environment; without one, a world of 1 on one visible GPU (or
+    the CPU) — several visible GPUs and no launcher are refused."""
+    import torch
+
+    from eov_tpu_torch.parallel import distributed as pdist
+    from eov_tpu_torch.utils.device import resolve_device
+
+    if not pdist.launcher_env_detected():
+        n_gpu = (torch.cuda.device_count()
+                 if torch.device(args.device).type == "cuda" else 0)
+        if n_gpu > 1:
+            raise SystemExit(
+                f"--multichip sees {n_gpu} GPUs but no launcher: one "
+                "process would leave all but one GPU idle. Run one process "
+                "per GPU: python -m torch.distributed.run --standalone "
+                f"--nproc_per_node {n_gpu} -m eov_tpu_torch.cli {args.cmd} "
+                "--multichip ...")
+        print(f"--multichip without a launcher: a world of 1 on "
+              f"{args.device}", file=sys.stderr)
+    device = resolve_device(pdist.local_device(args.device))
+    pdist.initialize(device=device)
+    try:
+        return pdist.global_mesh(n_frame=n_frame), device
+    except ValueError as e:
+        raise SystemExit(f"--multichip: {e}") from None
+
+
 def cmd_extract(args) -> int:
-    from eov_tpu_torch.config import resolved_dict
+    from eov_tpu_torch.config import get_preset, resolved_dict
     from eov_tpu_torch.data.store import FeatureStore
     from eov_tpu_torch.extract import extract_features, quant_calibration
+    from eov_tpu_torch.parallel import distributed as pdist
     from eov_tpu_torch.utils.device import resolve_device
     from eov_tpu_torch.utils.metrics import MetricsWriter
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.multichip:
+        mesh, device = _multichip(args, get_preset(args.preset).n_frame)
+    else:
+        device = resolve_device(args.device)
     cfg = _extract_config(args)
     if args.quant_calib is not None:
         if not cfg.quant:
             raise SystemExit("--quant-calib only applies with --quant int8")
         cfg = dataclasses.replace(cfg, quant_calib=args.quant_calib)
+    if mesh is not None:
+        # The global batch rounds to a multiple of the data size; every
+        # step runs at the full local batch.
+        batch = max(cfg.batch_clips, mesh.n_data)
+        cfg = dataclasses.replace(cfg, batch_clips=batch - batch % mesh.n_data,
+                                  pad_batches=True)
     dataset = _load_dataset(args)
     weights = _load_weights(args, cfg.arch)
     act_max = None
     if cfg.quant:
-        # The int8 scales are computed once and recorded in the store, so
-        # classify featurizes queries with this exact program.
-        act_max = quant_calibration(
-            weights, cfg, dataset if cfg.quant_calib == "dataset" else None,
-            device)
+        # The int8 scales are computed once (on rank 0 under --multichip,
+        # then broadcast) and recorded in the store, so classify featurizes
+        # queries with this exact program.
+        if pdist.rank() == 0:
+            act_max = quant_calibration(
+                weights, cfg,
+                dataset if cfg.quant_calib == "dataset" else None, device)
+        act_max = pdist.broadcast_object(act_max)
+    writer = mesh is None or mesh.frame_index == 0
     try:
         store = FeatureStore(args.store, class_names=list(dataset.class_names),
+                             process_index=mesh.data_index if mesh else 0,
                              dtype=args.store_dtype, quant=cfg.quant)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    if act_max is not None:
+    if act_max is not None and writer:
         store.set_quant_calib(act_max)
-    metrics = MetricsWriter(args.metrics)
+    metrics = MetricsWriter(args.metrics if pdist.rank() == 0 else None)
     metrics.write("config", command="extract", config=resolved_dict(cfg),
-                  device=str(device))
+                  device=str(device), multichip=bool(args.multichip))
     try:
         stats = extract_features(dataset, weights, store, cfg, metrics,
-                                 device=device, act_max=act_max)
+                                 device=device, act_max=act_max, mesh=mesh)
     finally:
         metrics.close()
     print(json.dumps(stats))
@@ -302,10 +356,16 @@ def cmd_eval(args) -> int:
     from eov_tpu_torch.data.store import FeatureStore
     from eov_tpu_torch.embodied import align_virtual_bank
     from eov_tpu_torch.eval import evaluate
+    from eov_tpu_torch.parallel.sharded import evaluate_sharded
     from eov_tpu_torch.utils.device import resolve_device
     from eov_tpu_torch.utils.metrics import MetricsWriter
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.multichip:
+        mesh, device = _multichip(args)
+    else:
+        device = resolve_device(args.device)
+    main = mesh is None or mesh.rank == 0
     preset = get_preset(args.preset)
     overrides = {f: getattr(args, f) for f in (
         "n_way", "k_shot", "n_query", "n_episodes", "metric", "fusion",
@@ -335,16 +395,19 @@ def cmd_eval(args) -> int:
                                          vstore.to_table(device))
         except ValueError as e:
             raise SystemExit(str(e)) from None
-    metrics = MetricsWriter(args.metrics)
+    metrics = MetricsWriter(args.metrics if main else None)
     metrics.write("config", command="eval", config=resolved_dict(cfg),
-                  device=str(device))
+                  device=str(device), multichip=bool(args.multichip))
     try:
-        res = evaluate(table, cfg, virtual=virtual)
+        res = (evaluate(table, cfg, virtual=virtual) if mesh is None else
+               evaluate_sharded(table, cfg, mesh, virtual=virtual))
     except ValueError as e:  # e.g. --matcher pallas with --device cpu
         raise SystemExit(str(e)) from None
     metrics.write("eval_result", mean_acc=res.mean_acc, ci95=res.ci95,
                   n_episodes=len(res.per_episode))
     metrics.close()
+    if not main:  # every rank holds the result; rank 0 reports it
+        return 0
     if args.per_episode_out:
         # Same format as the reference's, for paired comparisons
         # (tools/compare_eval.py of either package reads either's file).
@@ -646,20 +709,29 @@ def warm_start(state, path: str, num_classes: int) -> None:
 def run_training(cfg, dataset, *, device, epochs: int, out: str | None = None,
                  params: str | None = None, metrics_path: str | None = None,
                  val_dataset=None, val_n_way: int = 5,
-                 val_episodes: int = 120, val_segments: int = 8) -> dict:
+                 val_episodes: int = 120, val_segments: int = 8,
+                 mesh=None) -> dict:
     """The train command's body: warm start, resume, epochs, a checkpoint
     per epoch, and with ``val_dataset`` a meta-val one-shot score per
     epoch with the best recorded in ``out/best.json``. Returns the last
-    epoch's metrics."""
+    epoch's metrics.
+
+    With a ``mesh`` every rank trains its block of each global batch; rank
+    0 alone writes the checkpoints, ``best.json`` and the metrics (a
+    barrier follows each checkpoint), every rank resumes from the same
+    checkpoint, and rank 0's meta-val score is every rank's."""
     from eov_tpu_torch import train as tr
     from eov_tpu_torch.config import resolved_dict
+    from eov_tpu_torch.parallel import distributed as pdist
     from eov_tpu_torch.utils.checkpoint import (latest_step_dir, load_state,
                                                 save_state)
     from eov_tpu_torch.utils.metrics import MetricsWriter
 
-    metrics = MetricsWriter(metrics_path)
+    main = pdist.rank() == 0
+    say = print if main else (lambda *a, **k: None)
+    metrics = MetricsWriter(metrics_path if main else None)
     metrics.write("config", command="train", config=resolved_dict(cfg),
-                  device=str(device))
+                  device=str(device), multichip=mesh is not None)
     state = tr.create_train_state(cfg, device)
     if params:
         warm_start(state, params, cfg.num_classes)
@@ -668,8 +740,8 @@ def run_training(cfg, dataset, *, device, epochs: int, out: str | None = None,
     if last:  # resume takes precedence over the warm start
         load_state(last, state)
         start_epoch = int(os.path.basename(last).split("_")[1]) + 1
-        print(f"resumed from {last} (epoch {start_epoch})")
-    step_fn = tr.make_train_step(cfg, device)
+        say(f"resumed from {last} (epoch {start_epoch})")
+    step_fn = tr.make_train_step(cfg, device, mesh=mesh)
     best = None  # (val_acc, ci95, epoch)
     best_path = os.path.join(out, "best.json") if out else None
     if best_path and os.path.exists(best_path):
@@ -678,33 +750,38 @@ def run_training(cfg, dataset, *, device, epochs: int, out: str | None = None,
         best = (doc["val_acc"], doc["ci95"], doc["epoch"])
     m: dict = {}
     for epoch in range(start_epoch, epochs):
-        state, m = tr.train_epoch(state, step_fn, cfg, dataset, epoch=epoch)
+        state, m = tr.train_epoch(state, step_fn, cfg, dataset, epoch=epoch,
+                                  mesh=mesh)
         metrics.write("epoch", epoch=epoch, **m)
-        print(f"epoch {epoch}: {m}")
-        if out:
+        say(f"epoch {epoch}: {m}")
+        if out and main:
             save_state(os.path.join(out, f"step_{epoch}"), state)
+        pdist.barrier()
         if val_dataset is None:
             continue
-        res = tr.one_shot_validate(state, cfg, val_dataset, n_way=val_n_way,
-                                   n_episodes=val_episodes,
-                                   num_segments=val_segments, seed=cfg.seed)
+        res = tr.one_shot_validate(
+            state, cfg, val_dataset, n_way=val_n_way,
+            n_episodes=val_episodes, num_segments=val_segments,
+            seed=cfg.seed) if main else None
+        res = pdist.broadcast_object(res)
         metrics.write("val", epoch=epoch, val_acc=res.mean_acc,
                       ci95=res.ci95, n_episodes=val_episodes)
-        print(f"epoch {epoch} meta-val one-shot {res}")
+        say(f"epoch {epoch} meta-val one-shot {res}")
         if best is None or res.mean_acc > best[0]:
             best = (res.mean_acc, res.ci95, epoch)
-            if best_path:
+            if best_path and main:
                 tmp = best_path + ".tmp"
                 with open(tmp, "w") as f:
                     json.dump({"epoch": epoch, "val_acc": res.mean_acc,
                                "ci95": res.ci95, "dir": f"step_{epoch}"}, f)
                 os.replace(tmp, best_path)
     metrics.close()
+    pdist.barrier()  # best.json is written before any rank returns
     if out:
-        print(f"saved checkpoints under: {out}")
+        say(f"saved checkpoints under: {out}")
         if best is not None:
-            print(f"best meta-val epoch {best[2]}: {best[0] * 100:.2f}% +/- "
-                  f"{best[1] * 100:.2f}% (best.json; use --select best)")
+            say(f"best meta-val epoch {best[2]}: {best[0] * 100:.2f}% +/- "
+                f"{best[1] * 100:.2f}% (best.json; use --select best)")
     return m
 
 
@@ -732,11 +809,19 @@ def _val_split_spec(spec: str) -> str:
 def cmd_train(args) -> int:
     from eov_tpu_torch.utils.device import resolve_device
 
+    mesh = None
     if args.multichip:
-        raise SystemExit("--multichip: multi-GPU training is not ported yet")
-    device = resolve_device(args.device)
+        mesh, device = _multichip(args)
+    else:
+        device = resolve_device(args.device)
     dataset = _load_dataset(args)
     cfg = _train_config(args, len(dataset.class_names), num_segments=3)
+    if mesh is not None and cfg.batch_clips % mesh.n_data:
+        # The global batch rounds down to the data size (at least one clip
+        # a rank).
+        b = cfg.batch_clips
+        cfg = dataclasses.replace(cfg, batch_clips=max(b - b % mesh.n_data,
+                                                       mesh.n_data))
     # Meta-val for per-epoch one-shot model selection: the same source,
     # the val class partition (disjoint from the meta-train classes).
     val_dataset = None
@@ -750,7 +835,7 @@ def cmd_train(args) -> int:
            if v is not None}
     run_training(cfg, dataset, device=device, epochs=args.epochs,
                  out=args.out, params=args.params, metrics_path=args.metrics,
-                 val_dataset=val_dataset, **val)
+                 val_dataset=val_dataset, mesh=mesh, **val)
     return 0
 
 
@@ -908,6 +993,10 @@ def main(argv=None) -> int:
                   "kernel 7)")
     select_help = ("when --params is a train-run dir: newest epoch "
                    "checkpoint, or best.json's meta-val winner")
+    multichip_help = ("one process per GPU under torchrun (python -m "
+                      "torch.distributed.run --nproc_per_node N -m "
+                      "eov_tpu_torch.cli ...) over the ('data', 'frame') "
+                      "mesh; without a launcher a world of 1")
 
     ex = sub.add_parser("extract", help="dataset -> clip feature store")
     _add_common(ex)
@@ -936,6 +1025,7 @@ def main(argv=None) -> int:
                     help="int8 scale calibration: deterministic synthetic "
                          "fixtures (default) or the dataset's first clips; "
                          "recorded in the store, classify reuses them")
+    ex.add_argument("--multichip", action="store_true", help=multichip_help)
     ex.set_defaults(fn=cmd_extract)
 
     ev = sub.add_parser("eval", help="episodic one-shot eval over a store")
@@ -958,6 +1048,7 @@ def main(argv=None) -> int:
                     default=None, metavar="FILE",
                     help="per-episode accuracies and the protocol as JSON, "
                          "for tools/compare_eval.py")
+    ev.add_argument("--multichip", action="store_true", help=multichip_help)
     ev.set_defaults(fn=cmd_eval)
 
     cl = sub.add_parser("classify",
@@ -998,7 +1089,7 @@ def main(argv=None) -> int:
     tr.add_argument("--out", default=None,
                     help="run dir: step_N checkpoints, best.json, resume")
     tr.add_argument("--multichip", action="store_true",
-                    help="not ported yet (refused)")
+                    help=multichip_help)
     tr.add_argument("--val-class-split", dest="val_class_split",
                     default=None, metavar="JSON[:part]",
                     help="meta-val class split (default part 'val'): score "

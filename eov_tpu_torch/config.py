@@ -1,8 +1,11 @@
 """Frozen config presets — the port's own copy of the reference's table.
 
 Counterpart of ``eov_tpu/config.py``: the same preset names and protocol
-settings, built from the port's ``EvalConfig`` and ``ExtractConfig``.
-Multi-chip mesh sizes (``n_data``/``n_frame``) are not ported.
+settings, built from the port's ``EvalConfig`` and ``ExtractConfig``,
+and the frame-axis size ``n_frame`` of ``extract --multichip``'s
+('data', 'frame') mesh. The data axis is every other rank of the
+torchrun world: the reference's ``n_data`` field is read nowhere there,
+so the port has none.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ class Preset:
     description: str
     eval: EvalConfig = EvalConfig()
     extract: ExtractConfig = ExtractConfig()
+    n_frame: int = 1            # mesh frame-axis size (data = the rest)
 
 
 PRESETS: dict[str, Preset] = {
@@ -64,8 +68,8 @@ PRESETS: dict[str, Preset] = {
         ),
         Preset(
             name="pod_extract",
-            description="Config 5: pod-scale extraction batch settings "
-                        "(the mesh itself is not ported)",
+            description="Config 5: pod-scale extraction, clips sharded "
+                        "over every rank of the torchrun world",
             eval=EvalConfig(),
             extract=ExtractConfig(num_segments=8, batch_clips=128,
                                   flush_every=1024),

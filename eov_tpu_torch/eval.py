@@ -36,7 +36,7 @@ from eov_tpu_torch.ops.similarity import episode_class_scores
 from eov_tpu_torch.utils.debug import check_finite
 
 __all__ = ["EvalConfig", "EvalResult", "FeatureTable", "MATCHERS",
-           "eval_step", "evaluate"]
+           "eval_step", "evaluate", "check_protocol", "eval_result"]
 
 MATCHERS = ("auto", "xla", "pallas")
 
@@ -123,11 +123,11 @@ def eval_step(key: torch.Tensor, base_ordinal: int, features: torch.Tensor,
     return hits * (1.0 / (n_way * n_query))
 
 
-def evaluate(table: FeatureTable, cfg: EvalConfig,
-             virtual: FeatureTable | None = None) -> EvalResult:
-    """Run the protocol over the table (on its device): E episodes in steps
-    of ``episodes_per_step``, mean ± 95% CI. ``cfg.embodied`` needs the
-    ``virtual`` bank (aligned to the table's classes, same device)."""
+def check_protocol(table: FeatureTable, cfg: EvalConfig,
+                   virtual: FeatureTable | None = None) -> None:
+    """The host-side refusals of ``evaluate`` (and of the sharded eval):
+    embodied without a bank, a bank of another feature width, an unknown
+    matcher, too few eligible classes."""
     if cfg.embodied and virtual is None:
         raise ValueError("embodied eval requires a virtual FeatureTable")
     if cfg.embodied:
@@ -138,13 +138,29 @@ def evaluate(table: FeatureTable, cfg: EvalConfig,
                 f"real ({d_real}-d) and virtual ({d_virt}-d) features were "
                 "extracted with different backbones; re-extract one side")
     _plain_matcher(cfg.matcher, table.features.device)  # refuse up front
-    vf = virtual.features if cfg.embodied else None
-    vc = virtual.counts if cfg.embodied else None
     need = cfg.k_shot + cfg.n_query
     n_eligible = int((table.counts >= need).sum())
     if n_eligible < cfg.n_way:
         raise ValueError(f"only {n_eligible} classes have >= {need} clips; "
                          f"n_way={cfg.n_way} episodes are not sampleable")
+
+
+def eval_result(per_episode: np.ndarray) -> EvalResult:
+    """Mean ± 1.96·σ/√E (sample σ) of the per-episode accuracies."""
+    mean = float(per_episode.mean())
+    std = float(per_episode.std(ddof=1)) if len(per_episode) > 1 else 0.0
+    ci = 1.96 * std / np.sqrt(len(per_episode))
+    return EvalResult(mean_acc=mean, ci95=float(ci), per_episode=per_episode)
+
+
+def evaluate(table: FeatureTable, cfg: EvalConfig,
+             virtual: FeatureTable | None = None) -> EvalResult:
+    """Run the protocol over the table (on its device): E episodes in steps
+    of ``episodes_per_step``, mean ± 95% CI. ``cfg.embodied`` needs the
+    ``virtual`` bank (aligned to the table's classes, same device)."""
+    check_protocol(table, cfg, virtual)
+    vf = virtual.features if cfg.embodied else None
+    vc = virtual.counts if cfg.embodied else None
     key = prng.key(cfg.seed, device=table.features.device)
     accs, done = [], 0
     # Every step runs at the full step shape; the tail step's extra
@@ -159,8 +175,4 @@ def evaluate(table: FeatureTable, cfg: EvalConfig,
         take = min(cfg.episodes_per_step, cfg.n_episodes - done)
         accs.append(acc[:take])
         done += take
-    per_episode = torch.cat(accs).cpu().numpy()
-    mean = float(per_episode.mean())
-    std = float(per_episode.std(ddof=1)) if len(per_episode) > 1 else 0.0
-    ci = 1.96 * std / np.sqrt(len(per_episode))
-    return EvalResult(mean_acc=mean, ci95=float(ci), per_episode=per_episode)
+    return eval_result(torch.cat(accs).cpu().numpy())

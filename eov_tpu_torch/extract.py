@@ -59,8 +59,12 @@ without stage 1 fused or on a basic arch; int8 with ``stem_s2d``). Where the ref
 another path. So on resnet18/34, whose ``"auto"`` fused stages are (),
 ``pallas_pool=True`` needs explicit ``fused_stages``. ``fused_group`` is
 the reference's TPU grid knob (images per kernel grid step), whose results
-are bit-identical for every group; the port accepts it and ignores it. The
-multi-chip mesh path (``extract_features(mesh=)``) is not ported.
+are bit-identical for every group; the port accepts it and ignores it.
+
+``extract_features(mesh=)`` is the multi-GPU loop (one process per GPU,
+``parallel/``): each data row extracts its shard of the records into its
+own namespace of the shared store, its frame ranks splitting the K
+segments (``_extract_sharded``).
 """
 
 from __future__ import annotations
@@ -98,7 +102,7 @@ from eov_tpu_torch.utils.device import resolve_device
 from eov_tpu_torch.utils.metrics import MetricsWriter, Timer
 
 __all__ = ["ExtractConfig", "resolve_fused_stages", "quant_calibration",
-           "make_feature_fn", "extract_features"]
+           "make_feature_fn", "make_segment_fn", "extract_features"]
 
 log = logging.getLogger("eov_tpu_torch.extract")
 
@@ -266,6 +270,22 @@ def make_feature_fn(weights, cfg: ExtractConfig,
     ``act_max`` (int8 only): the activation maxima to quantize with, e.g.
     ``quant_calibration``'s output or a store's ``quant_calib()``; None
     calibrates on the synthetic fixtures here."""
+    segments = make_segment_fn(weights, cfg, device, act_max=act_max)
+
+    @torch.inference_mode()
+    def feature_fn(frames_u8: torch.Tensor) -> torch.Tensor:
+        return check_finite("features", segments(frames_u8).mean(dim=1))
+
+    return feature_fn
+
+
+def make_segment_fn(weights, cfg: ExtractConfig,
+                    device: torch.device | str = "cuda",
+                    act_max: dict | None = None) -> Callable:
+    """The feature program before the TSN consensus: uint8 clips [B, K, H,
+    W, 3] -> per-segment features [B, K, D] float32 on ``device`` (what
+    ``make_feature_fn`` averages, and what the sharded program sums over
+    the frame ranks)."""
     dev = resolve_device(device)
     dtype = _DTYPES[cfg.compute_dtype]
     if dtype == torch.float32 and dev.type == "cuda":
@@ -298,7 +318,7 @@ def make_feature_fn(weights, cfg: ExtractConfig,
     net = net.to(dev).eval()
 
     @torch.inference_mode()
-    def feature_fn(frames_u8: torch.Tensor) -> torch.Tensor:
+    def segment_fn(frames_u8: torch.Tensor) -> torch.Tensor:
         frames_u8 = frames_u8.to(dev, non_blocking=True)
         h, w = frames_u8.shape[-3], frames_u8.shape[-2]
         if cfg.pallas_crop and min(h, w) == cfg.scale_size:  # eval scale
@@ -308,10 +328,9 @@ def make_feature_fn(weights, cfg: ExtractConfig,
             x = preprocess.preprocess_eval(
                 frames_u8, scale_size=cfg.scale_size,
                 crop_size=cfg.crop_size, dtype=dtype)
-        feats = net(x)  # [B, K, D]
-        return check_finite("features", feats.float().mean(dim=1))  # TSN
+        return net(x).float()  # [B, K, D]
 
-    return feature_fn
+    return segment_fn
 
 
 class UnfoldedResNet(torch.nn.Module):
@@ -404,6 +423,7 @@ def extract_features(
     device: torch.device | str = "cuda",
     act_max: dict | None = None,
     records: Sequence[VideoRecord] | None = None,
+    mesh=None,
 ) -> dict:
     """Extract every record not yet in the store. Returns stats
     {total, skipped_done, extracted, failed}.
@@ -411,9 +431,18 @@ def extract_features(
     ``feature_fn`` overrides the ResNet program (tests swap in a cheap
     one); ``act_max`` goes to ``make_feature_fn`` (int8 scales);
     ``records`` restricts the work list (default: all of the dataset's).
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` of more than one rank) runs the
+    sharded loop (``_extract_sharded``): ``records`` defaults to this
+    rank's shard, ``feature_fn`` to ``make_sharded_feature_fn`` (int8 needs
+    ``act_max``), and ``store`` is the shared store opened with
+    ``process_index`` = this rank's data index.
     """
     dev = resolve_device(device)
     metrics = metrics or MetricsWriter(None)
+    if mesh is not None and mesh.size > 1:
+        return _extract_sharded(dataset, weights, store, cfg, metrics,
+                                feature_fn, dev, act_max, records, mesh)
     feature_fn = feature_fn or make_feature_fn(weights, cfg, dev,
                                                act_max=act_max)
     done = store.done_ids()
@@ -595,3 +624,126 @@ def extract_features(
     store.flush()
     metrics.write("extract_done", **stats)
     return stats
+
+
+def _extract_sharded(dataset, weights, store, cfg: ExtractConfig, metrics,
+                     feature_fn, dev, act_max, records, mesh) -> dict:
+    """The multi-GPU extraction loop (the reference's pod loop).
+
+    Data row r holds ``records`` (default ``process_record_shard``: every
+    n_data-th record from r); each of its frame ranks decodes the row's
+    clips at its block of the K center segments. Every step has the fixed
+    local batch ``batch_clips / n_data``, and every rank runs the same
+    number of steps (``global_max``): a rank that has run out pads with
+    its last clip, or a probe clip, so every rank enters the same
+    collectives. A clip that fails to decode on any frame rank of the row
+    is dropped on all of them. Frame rank 0 of each row writes the row's
+    clips into the shared store (its ``process_index`` = the data index).
+    Resume: the store's ``done_ids()``, read by every rank before any rank
+    writes. A barrier closes the loop. Decoding is inline (no decode
+    thread, no buffer ring); clips of another resolution than the rank's
+    first are refused."""
+    from eov_tpu_torch.parallel import distributed as pdist
+    from eov_tpu_torch.parallel.sharded import make_sharded_feature_fn
+
+    n_data = mesh.n_data
+    if cfg.batch_clips % n_data:
+        raise ValueError(f"global batch_clips={cfg.batch_clips} not "
+                         f"divisible by data={n_data}")
+    lb = cfg.batch_clips // n_data  # this row's clips of every step
+    if lb == 0:
+        raise ValueError(f"batch_clips={cfg.batch_clips} smaller than "
+                         f"data={n_data}")
+    seg = pdist.host_local_frames(mesh, cfg.num_segments)
+    writer = mesh.frame_index == 0
+    feature_fn = feature_fn or make_sharded_feature_fn(
+        weights, mesh, cfg, act_max=act_max, device=dev)
+    work = (pdist.process_record_shard(dataset.records, mesh)
+            if records is None else list(records))
+    done = store.done_ids()
+    pdist.barrier()  # every rank has read done_ids before any writes
+    todo = [r for r in work if r.video_id not in done]
+    fault_rng = np.random.default_rng(cfg.fault_seed)
+    stats = {"total": len(work), "skipped_done": len(work) - len(todo),
+             "extracted": 0, "failed": 0}
+    n_steps = pdist.global_max(-(-len(todo) // lb))
+    can_pool = hasattr(dataset, "get_batch") and not cfg.fault_inject
+    since_flush = 0
+    timer = Timer()
+    known = None  # a clip of this rank's resolution, for the padding
+
+    def indices(rec):
+        return center_indices_np(rec.num_frames, cfg.num_segments)[seg]
+
+    def decode(batch) -> list:
+        """One uint8 clip [k_local, H, W, 3] or None (failed) a record."""
+        if can_pool:
+            try:
+                arr = dataset.get_batch(batch, np.stack(
+                    [indices(r) for r in batch]))
+                return list(arr)
+            except Exception as e:  # noqa: BLE001 — retried per record
+                log.warning("pooled decode failed (%s); per-record retry", e)
+        clips = []
+        for rec in batch:
+            try:
+                if cfg.fault_inject and fault_rng.random() < cfg.fault_inject:
+                    raise IOError(f"injected decode fault: {rec.video_id}")
+                clips.append(dataset.get_frames(rec, indices(rec)))
+            except Exception as e:  # noqa: BLE001 — containment by design
+                log.warning("decode failed, skipping %s: %s", rec.video_id, e)
+                metrics.write("decode_failure", video_id=rec.video_id,
+                              error=str(e))
+                clips.append(None)
+        return clips
+
+    pending = None  # (records, features on device) of the previous step
+    for s in range(n_steps):
+        batch = todo[s * lb:(s + 1) * lb]
+        clips = decode(batch)
+        ok = torch.tensor([c is not None for c in clips] + [True] * (
+            lb - len(clips)), dtype=torch.int32)
+        if mesh.n_frame > 1:  # a clip counts only if every frame rank has it
+            ok = pdist.all_reduce(ok, mesh.frame_group, op="min")
+        good = [c for c, k in zip(clips, ok.tolist()) if c is not None and k]
+        shapes = {c.shape for c in good} | (
+            {known.shape} if known is not None else set())
+        if len(shapes) > 1:
+            raise ValueError(
+                "multi-GPU extraction requires resolution-normalized frame "
+                f"storage (saw {sorted(shapes)}); pack with pack_eovc "
+                "--short-side")
+        if good:
+            known = good[-1]
+        elif known is None:
+            rec = (todo or work or list(dataset.records))[0]
+            known = dataset.get_frames(rec, indices(rec))
+        oks = [r for r, k in zip(batch, ok.tolist()) if k]
+        stats["failed"] += len(batch) - len(oks)
+        frames = np.stack(good + [known] * (lb - len(good)))
+        feats = feature_fn(_host_batch(frames, dev))
+        if pending is not None:
+            since_flush += _put_rows(store, *pending, writer)
+        pending = (oks, feats)
+        stats["extracted"] += len(oks)
+        if since_flush >= cfg.flush_every:
+            store.flush()
+            since_flush = 0
+        metrics.write("extract_batch", n=len(oks),
+                      failed=len(batch) - len(oks), seconds=timer.lap())
+    if pending is not None:
+        _put_rows(store, *pending, writer)
+    store.flush()
+    pdist.barrier()
+    metrics.write("extract_done", **stats)
+    return stats
+
+
+def _put_rows(store, recs, feats_dev, writer: bool) -> int:
+    """Stage the rows of ``recs`` (the leading rows of ``feats_dev``) in
+    the store when this rank writes; returns the rows staged."""
+    if not writer:
+        return 0
+    for rec, f in zip(recs, feats_dev.cpu().numpy()):
+        store.put(rec.video_id, f, rec.label)
+    return len(recs)

@@ -93,10 +93,10 @@ class ResNetSlice(_View):
         self.has_head = head
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                noise: torch.Tensor | None = None) -> torch.Tensor:
         for name in self.names:
             x = self.model.run_block(name, x)
-        return self.model.head(x, generator) if self.has_head else x
+        return self.model.head(x, noise) if self.has_head else x
 
 
 class FusedStack(_View):

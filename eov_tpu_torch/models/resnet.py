@@ -39,8 +39,11 @@ loads into it unchanged. Its numerics are the flax model's:
   unbiased one, with the opposite meaning of momentum).
 * ``partial_bn`` (TSN): the stem ``bn1`` trains; every other BN is frozen
   on its running statistics, affine included (``requires_grad=False``).
-* Global mean pool in f32, dropout (mask from an explicit generator), f32
-  ``fc``.
+* Global mean pool in f32, dropout (mask from a uniform draw the caller
+  gives), f32 ``fc``.
+* A training BN's batch statistics pass through ``BatchNorm.stats_reduce``
+  when it is set (``train.make_train_step(mesh=)`` averages them over the
+  ranks there, for the length of one step).
 * ``remat`` recomputes each residual block in the backward
   (``torch.utils.checkpoint``); a running-statistics update is applied once,
   on the first of the two forwards.
@@ -318,13 +321,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.frozen = frozen
         self.update_stats = True  # off while remat recomputes the forward
+        # [2, C] (mean, mean of squares) -> the statistics the forward uses
+        # (differentiable); None = the batch's own.
+        self.stats_reduce = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training and not self.frozen:
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                                  0.0)
+            sq = (x * x).mean(dim=(0, 2, 3))
+            if self.stats_reduce is not None:
+                mean, sq = self.stats_reduce(torch.stack([mean, sq])).unbind(0)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = _BN_MOMENTUM
@@ -446,21 +454,24 @@ class ResNet(nn.Module):
         return block(x)
 
     def head(self, x: torch.Tensor,
-             generator: torch.Generator | None = None) -> torch.Tensor:
-        """Global mean pool (f32) -> dropout -> fc (f32)."""
+             noise: torch.Tensor | None = None) -> torch.Tensor:
+        """Global mean pool (f32) -> dropout -> fc (f32). Dropout keeps a
+        pooled feature where ``noise`` (uniform on [0, 1), [N, C]; drawn
+        here when None) is below 1 - p."""
         x = x.float().mean(dim=(2, 3))
         if self.fc is None:
             return x
         if self.training and self.dropout > 0:
-            keep = torch.rand(x.shape, generator=generator,
-                              device=x.device) < 1.0 - self.dropout
+            if noise is None:
+                noise = torch.rand(x.shape, device=x.device)
+            keep = noise < 1.0 - self.dropout
             x = torch.where(keep, x / (1.0 - self.dropout),
                             torch.zeros_like(x))
         return self.fc(x)
 
     def forward(self, x_nhwc: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                noise: torch.Tensor | None = None) -> torch.Tensor:
         x = self.stem(x_nhwc)
         for _, _, t in block_names(self.arch):
             x = self.run_block(t, x)
-        return self.head(x, generator)
+        return self.head(x, noise)

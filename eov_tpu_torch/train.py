@@ -37,12 +37,24 @@ reference's first-max backward). ``'auto'`` is off for both, as in the
 reference. Neither changes the parameters, the checkpoint or the
 optimizer.
 
-Not ported yet, and refused rather than ignored: multi-process (pod)
-training.
+Multi-GPU (``make_train_step(..., mesh=)``, ``train_epoch(mesh=)``; the
+reference's pjit step and pod epoch loop): one process per GPU, each rank
+on its block of the global batch (clips over 'data', segments over
+'frame'), so that the global step equals the single-process step on the
+global batch. Every rank draws the epoch's order and TSN indices from the
+same seeded generator in global order and decodes its rows; the
+augmentation keys are ``prng.split(key, B_global)`` and the dropout mask
+is drawn at the global shape, each rank taking its rows; the trained stem
+BN's statistics are averaged over every rank, and under ``n_frame > 1``
+the segment logits are summed over the row's frame ranks, both through
+autograd; the gradients are averaged over the ranks before SGD, and loss
+and accuracy are global means. The state starts from rank 0's
+(``sync_state``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -64,7 +76,8 @@ from eov_tpu_torch.utils.device import resolve_device
 
 __all__ = ["TrainConfig", "TrainState", "create_train_state",
            "make_train_step", "resolve_fused", "learning_rate",
-           "train_epoch", "evaluate_classifier", "one_shot_validate"]
+           "train_epoch", "evaluate_classifier", "one_shot_validate",
+           "sync_state"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TRI_STATE = ("fused_stage1", "fused_stage2", "stem_s2d", "pool_vjp")
@@ -193,12 +206,20 @@ def create_train_state(cfg: TrainConfig, device: torch.device | str = "cuda",
     return TrainState(step=0, model=model, optimizer=opt)
 
 
-def make_train_step(cfg: TrainConfig,
-                    device: torch.device | str = "cuda") -> Callable:
+def make_train_step(cfg: TrainConfig, device: torch.device | str = "cuda",
+                    mesh=None) -> Callable:
     """TSN train step ``(state, frames_u8 [B,K,H,W,3], labels [B], key) ->
     (state, {"loss", "accuracy"})`` on ``device``. ``key`` is a threefry key
-    (``prng.key``); the metrics stay device tensors (no sync)."""
+    (``prng.key``); the metrics stay device tensors (no sync).
+
+    With a ``parallel.mesh.Mesh`` of more than one rank, ``frames_u8`` and
+    ``labels`` are this rank's block of the global batch (rows of its data
+    index, segments of its frame index), ``key`` the global step's key, and
+    the step is the global one (module doc); every rank must call it."""
     dev = resolve_device(device)
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        from eov_tpu_torch.parallel import distributed as pdist
     fuse, fuse2 = resolve_fused(cfg, dev)
     dtype = _DTYPES[cfg.compute_dtype]
     if dev.type == "cuda":
@@ -206,9 +227,9 @@ def make_train_step(cfg: TrainConfig,
     aug = (preprocess.preprocess_train_multiscale
            if cfg.augment == "multiscale" else preprocess.preprocess_train)
 
-    def forward(model: ResNet, flat, gen):
+    def forward(model: ResNet, flat, noise):
         if not fuse:
-            return model(flat, gen)
+            return model(flat, noise)
         sizes = model.stage_sizes
         width = model.conv1.weight.shape[0]
         x = ResNetStem(model, s2d=cfg.stem_s2d == "on",
@@ -219,7 +240,7 @@ def make_train_step(cfg: TrainConfig,
             x = FusedStack(model, [f"layer2.{j}"
                                    for j in range(1, sizes[1])])(x)
         rest = stage_block_specs(sizes, width, (3, 4) if fuse2 else (2, 3, 4))
-        return ResNetSlice(model, rest, head=True)(x, gen)
+        return ResNetSlice(model, rest, head=True)(x, noise)
 
     def train_step(state: TrainState, frames_u8: torch.Tensor,
                    labels: torch.Tensor, key: torch.Tensor):
@@ -228,20 +249,38 @@ def make_train_step(cfg: TrainConfig,
         frames = frames_u8.to(dev, non_blocking=True)
         labels = labels.to(dev, torch.int64, non_blocking=True)
         b, k = frames.shape[0], frames.shape[1]
+        bg, kg = b, k  # the global batch, of which this rank has a block
+        rows = segs = slice(None)
+        if sharded:
+            bg, kg = b * mesh.n_data, k * mesh.n_frame
+            rows = pdist.host_local_rows(mesh, bg)
+            segs = pdist.host_local_frames(mesh, kg)
         key = key.cpu()
-        x = aug(prng.split(key, b), frames, scale_size=cfg.scale_size,
+        x = aug(prng.split(key, bg)[rows], frames, scale_size=cfg.scale_size,
                 crop_size=cfg.crop_size, dtype=dtype)
-        gen = None
-        if cfg.dropout > 0:
+        noise = None
+        if cfg.dropout > 0:  # drawn at the global shape; this rank's block
             hi, lo = prng.fold_in(key, 1).tolist()
             gen = torch.Generator(device=dev)
             gen.manual_seed((hi << 32) | lo)
-        logits = forward(model, x.reshape(b * k, *x.shape[2:]), gen)
-        logits = logits.reshape(b, k, -1).mean(dim=1)  # TSN consensus
-        loss = check_finite("train loss", F.cross_entropy(logits, labels))
-        acc = (logits.argmax(dim=-1) == labels).float().mean()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+            noise = torch.rand((bg, kg, model.fc.in_features), generator=gen,
+                               device=dev)[rows, segs].reshape(b * k, -1)
+        with _global_bn_stats(model, mesh if sharded else None):
+            logits = forward(model, x.reshape(b * k, *x.shape[2:]), noise)
+            logits = logits.reshape(b, k, -1)
+            if sharded and mesh.n_frame > 1:  # TSN consensus over the row
+                logits = pdist.all_reduce_grad(
+                    logits.sum(dim=1), mesh.frame_group) / kg
+            else:
+                logits = logits.mean(dim=1)  # TSN consensus
+            loss = check_finite("train loss", F.cross_entropy(logits, labels))
+            acc = (logits.argmax(dim=-1) == labels).float().mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        if sharded:
+            _mean_grads(model, mesh.size)
+            loss, acc = (pdist.all_reduce(torch.stack([loss.detach(), acc]))
+                         / mesh.size).unbind(0)
         if debug.enabled():
             for name, p in model.named_parameters():
                 if p.grad is not None:
@@ -253,6 +292,60 @@ def make_train_step(cfg: TrainConfig,
         return state, {"loss": loss.detach(), "accuracy": acc}
 
     return train_step
+
+
+@contextlib.contextmanager
+def _global_bn_stats(model: ResNet, mesh):
+    """With a mesh, the training BNs (the stem's alone under partial_bn)
+    use their batch statistics averaged over every rank, through autograd,
+    until the block ends: the forward and the backward, where remat
+    recomputes the blocks. Without one, nothing changes."""
+    if mesh is None:
+        yield
+        return
+    from eov_tpu_torch.parallel import distributed as pdist
+
+    def reduce(t):
+        return pdist.all_reduce_grad(t) / mesh.size
+
+    bns = [m for m in model.modules()
+           if isinstance(m, BatchNorm) and not m.frozen]
+    for m in bns:
+        m.stats_reduce = reduce
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_reduce = None
+
+
+def _mean_grads(model: torch.nn.Module, world: int) -> None:
+    """Every parameter gradient replaced by its mean over the ranks (one
+    all-reduce of the flattened gradients)."""
+    from eov_tpu_torch.parallel import distributed as pdist
+
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = pdist.all_reduce(torch.cat([g.reshape(-1) for g in grads])) / world
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+
+
+def sync_state(state: TrainState) -> TrainState:
+    """Rank 0's parameters, buffers and momentum on every rank (a no-op
+    without a process group)."""
+    from eov_tpu_torch.parallel import distributed as pdist
+
+    model = state.model
+    tensors = [*model.parameters(), *model.buffers()]
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                tensors.append(buf)
+    pdist.broadcast_tensors(tensors)
+    return state
 
 
 def evaluate_classifier(state: TrainState, cfg: TrainConfig, dataset, *,
@@ -345,9 +438,12 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
     are bucketed per frame resolution and a step runs whenever a bucket
     fills; a bucket's tail is wrap-padded to a full batch.
     Returns (state, {"loss", "accuracy", "steps", "clips"}).
+
+    With a mesh of more than one rank (``step_fn`` from
+    ``make_train_step(mesh=)``): the reference's pod loop (``_epoch_sharded``).
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-process training is not ported yet")
+    if mesh is not None and mesh.size > 1:
+        return _epoch_sharded(state, step_fn, cfg, dataset, epoch, mesh)
     dev = next(state.model.parameters()).device
     rng = np.random.default_rng(cfg.seed + epoch)
     order = rng.permutation(len(dataset.records))
@@ -388,4 +484,69 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
         run_step(clips, labels)
     out = {k: float(v) for k, v in last.items()}
     out.update(steps=n_steps, clips=n_clips)
+    return state, out
+
+
+def _epoch_sharded(state: TrainState, step_fn: Callable, cfg: TrainConfig,
+                   dataset, epoch: int, mesh) -> tuple:
+    """The multi-GPU epoch: the single-process epoch's global batches, each
+    rank decoding its block of them.
+
+    Every rank draws the permutation and every TSN index from the same
+    seeded generator in global order, and wrap-pads the tail, so global
+    batch s is the single-process epoch's s-th batch; data rank r decodes
+    rows [r * b_local, (r + 1) * b_local) of each, at its frame rank's
+    segments. The ranks agree on the frame resolution before the first
+    step; a dataset of several resolutions is refused (a rank cannot see
+    the others' frames, so the single-process bucketing has no sharded
+    form). The state starts from rank 0's."""
+    from eov_tpu_torch.parallel import distributed as pdist
+
+    b = cfg.batch_clips
+    rows = pdist.host_local_rows(mesh, b)
+    segs = pdist.host_local_frames(mesh, cfg.num_segments)
+    state = sync_state(state)
+    dev = next(state.model.parameters()).device
+    rng = np.random.default_rng(cfg.seed + epoch)
+    order = rng.permutation(len(dataset.records))
+    key = prng.key(cfg.seed + epoch)
+    samples = [(int(i), _tsn_train_indices(
+        rng, dataset.records[i].num_frames, cfg.num_segments))
+        for i in order]
+    n = len(samples)
+    n0 = n % b
+    if n0:
+        tail = samples[n - n0:]
+        samples += [tail[j % n0] for j in range(b - n0)]
+    last: dict = {}
+    shape0 = None
+    for s in range(len(samples) // b):
+        clips, labels = [], []
+        for i, idx in samples[s * b:(s + 1) * b][rows]:
+            r = dataset.records[i]
+            clip = dataset.get_frames(r, idx[segs])
+            if shape0 is None:
+                shape0 = clip.shape[1:3]
+            elif clip.shape[1:3] != shape0:
+                raise ValueError(
+                    "multi-GPU training requires resolution-normalized "
+                    f"storage: saw {clip.shape[1:3]} after {shape0} — pack "
+                    "to EOVC (tools/pack_eovc) or pre-resize")
+            clips.append(clip)
+            labels.append(r.label)
+        if s == 0:
+            code = shape0[0] * 131072 + shape0[1]
+            if pdist.global_max(code) != -pdist.global_max(-code):
+                raise ValueError(
+                    "multi-GPU training: the ranks decoded different frame "
+                    f"resolutions (this rank: {shape0}) — resolution-"
+                    "normalize the storage (pack_eovc)")
+        frames = torch.from_numpy(np.stack(clips))
+        if dev.type == "cuda":
+            frames = frames.pin_memory()
+        key, sub = prng.split(key, 2).unbind(0)
+        state, last = step_fn(state, frames,
+                              torch.tensor(labels, dtype=torch.int64), sub)
+    out = {k: float(v) for k, v in last.items()}
+    out.update(steps=len(samples) // b, clips=n)
     return state, out

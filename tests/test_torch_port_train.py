@@ -283,20 +283,22 @@ def test_train_mode_forward_matches_flax(jax_state, arch, partial_bn,
 
 def test_dropout_keep_rate_and_scale():
     """Dropout in training keeps ~1-p of the pooled features, scaled by
-    1/(1-p), from the generator it is given (same seed, same mask)."""
+    1/(1-p), from the uniform draw it is given (same draw, same mask;
+    kept where the draw is below 1 - p)."""
     model = ResNet("resnet18", num_classes=3, dropout=0.5, width=8)
     model.train()
     x = torch.rand(64, 64, 1, 1) + 0.5
     outs = []
     for _ in range(2):
-        g = torch.Generator().manual_seed(9)
+        noise = torch.rand(64, 64, generator=torch.Generator().manual_seed(9))
         seen = {}
         model.fc.register_forward_hook(
             lambda m, inp, out: seen.setdefault("x", inp[0]))
-        model.head(x, g)
+        model.head(x, noise)
         outs.append(seen["x"])
         model.fc._forward_hooks.clear()
     kept = outs[0] != 0
+    assert torch.equal(kept, noise < 0.5)
     assert 0.45 < float(kept.float().mean()) < 0.55
     torch.testing.assert_close(outs[0][kept], 2.0 * x.reshape(64, 64)[kept])
     assert torch.equal(outs[0], outs[1])

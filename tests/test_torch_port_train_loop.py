@@ -81,8 +81,19 @@ def test_train_epoch_matches_reference():
               "fc.weight"):
         np.testing.assert_allclose(sd[k].numpy(), want[k].numpy(),
                                    atol=1e-4, rtol=0, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        ttr.train_epoch(state, None, cfg, ds, mesh=object())
+    # A mesh of one rank (no process group) is the single-process loop:
+    # the same buckets, wrap-padding and step keys.
+    from eov_tpu_torch.parallel.mesh import make_mesh
+
+    seen = []
+
+    def record(state, frames, labels, key):
+        seen.append((tuple(frames.shape), labels.tolist(), key.tolist()))
+        return state, {"loss": 0.0, "accuracy": 0.0}
+
+    for mesh in (None, make_mesh()):
+        ttr.train_epoch(state, record, cfg, ds, epoch=1, mesh=mesh)
+    assert len(seen) == 8 and seen[:4] == seen[4:]
 
 
 SYN = ["--device", "cpu", "--synthetic-classes", "3", "--synthetic-clips",
@@ -111,8 +122,10 @@ def test_cli_train_checkpoint_resume_test(tmp_path, capsys):
         cli.main(["test", *SYN, "--params", str(tmp_path / "w.pth")])
     with pytest.raises(SystemExit, match="best.json"):
         cli.main(["test", *SYN, "--params", run, "--select", "best"])
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["train", *SYN, "--multichip"])
+    # --multichip without a launcher: a world of 1 (no process group).
+    assert cli.main(["train", *SYN, "--multichip", "--out",
+                     str(tmp_path / "mc"), "--epochs", "1"]) == 0
+    assert read_state(os.path.join(tmp_path, "mc", "step_0"))["step"] == 3
     # --val-class-split is ported: it reads the split, which is missing here
     with pytest.raises(FileNotFoundError, match="s.json"):
         cli.main(["train", *SYN, "--val-class-split",
