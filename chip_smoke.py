@@ -103,7 +103,17 @@ Phases (any failure exits non-zero):
    without ``--multichip``; (c) the parity harness's self-check with its
    pipeline B on the card (a ``null`` line with the reason if PIL does not
    import). ``--only multi_gpu_path`` runs the build and this phase alone;
-12. print the ``kernels`` JSON line, the card line, and last
+12. the tracing of ``eov_tpu_torch/utils/trace.py``: 20 launches of known
+   kernels, each followed by a host-only span that sleeps 5 ms, must read
+   back as ``device_gap_s`` within 10% of the idle planted (each sleep
+   less the kernel time still queued) and be put down to the sleeping
+   span; a root under ``torch.profiler`` must report itself profiled; the
+   always-on cost of a span, a device span, a count and a step is printed
+   in microseconds, on and off the profiler, and so is the host time a
+   step of epochs of empty steps with ``r50_finetune``'s spans and counts,
+   beside the 50 us budget. ``--only trace_path`` runs this phase alone,
+   without the build;
+13. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds kernel 6 (the stem max-pool) equal to its plain
@@ -190,6 +200,25 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Launches:
+    """The named wrappers' kernel launches since it was made, read from
+    their ``launch.<wrapper>`` trace counters: ``Launches(kernels)()``."""
+
+    def __init__(self, kernels: dict):
+        self.kernels = kernels
+        self.start = self._now()
+
+    def _now(self) -> dict:
+        from eov_tpu_torch.utils import trace
+
+        return {name: trace.counter(f"launch.{k.__name__}")
+                for name, k in self.kernels.items()}
+
+    def __call__(self) -> dict:
+        now = self._now()
+        return {name: int(now[name] - self.start[name]) for name in now}
 
 
 def fail(msg: str) -> None:
@@ -1454,8 +1483,7 @@ def main_path(dev, gpu):
     ecfg = EvalConfig(n_way=5, k_shot=1, n_query=1, n_episodes=600,
                       episodes_per_step=64)
 
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = extract_features(ds, weights, store, cfg, feature_fn=feature_fn,
@@ -1467,7 +1495,7 @@ def main_path(dev, gpu):
     res = evaluate(table, ecfg)
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
 
     zero = [n for n, c in launches.items() if c == 0]
     if zero:
@@ -1579,20 +1607,19 @@ def real_data_path(dev, gpu):
                "bottleneck_stack": bottleneck.fused_bottleneck_stack,
                "episode_scores": similarity.episode_class_scores}
     store = os.path.join(work, "store")
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     t0 = time.perf_counter()
     out = _quiet_cli(["extract", "--dataset", "eovc", "--root", shards,
                       "--preset", "tpu_batched", "--store", store])
     torch.cuda.synchronize()
     cli_extract_s = time.perf_counter() - t0
-    extract_launches = {name: k.launches for name, k in kernels.items()}
+    extract_launches = since()
     stats = json.loads(out[-1])
     if stats["extracted"] != 72 or stats["failed"]:
         fail(f"real-data extraction incomplete: {stats}")
     acc_line = _quiet_cli(["eval", "--store", store, "--preset",
                            "tpu_batched"])[-1]
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
     zero = [n for n, c in launches.items() if c == 0]
     if zero or extract_launches["crop_normalize"] == 0:
         fail(f"kernels never launched on the real-data path: {zero}, "
@@ -1707,8 +1734,7 @@ def int8_embodied_path(dev, gpu, batch):
     kernels = {"crop_normalize": crop_normalize.crop_normalize,
                "bottleneck_int8": bottleneck_int8.fused_bottleneck_stack_int8,
                "episode_scores": similarity.episode_class_scores}
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = json.loads(_quiet_cli(["extract", *common, "--store", real,
@@ -1741,7 +1767,7 @@ def int8_embodied_path(dev, gpu, batch):
     episode = json.loads(_quiet_cli(["episode", *common,
                                      "--synthetic-clips", "2"])[-1])
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
 
     zero = [n for n, c in launches.items() if c == 0]
     if zero:
@@ -1902,8 +1928,7 @@ def basic_pool_path(dev, gpu, batch):
                    bottleneck.fused_pool_bottleneck_stack,
                "bottleneck_stack": bottleneck.fused_bottleneck_stack,
                "episode_scores": similarity.episode_class_scores}
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = json.loads(_quiet_cli(["extract", *common, *r34, "--store",
@@ -1916,7 +1941,7 @@ def basic_pool_path(dev, gpu, batch):
     stats50 = json.loads(_quiet_cli(["extract", *common, "--pallas-pool",
                                      "fused", "--store", stores["r50"]])[-1])
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
     zero = [n for n, c in launches.items() if c == 0]
     if zero:
         fail(f"kernels never launched on the basic-block and pool path: "
@@ -2040,8 +2065,7 @@ def train_path(dev, gpu):
     from eov_tpu_torch import prng
     from eov_tpu_torch import train as tr
     from eov_tpu_torch.data.datasets import SyntheticVideoDataset
-    from eov_tpu_torch.ops import (bottleneck, bottleneck_train,
-                                   crop_normalize, similarity)
+    from eov_tpu_torch.ops import bottleneck_train, similarity
     from eov_tpu_torch.utils.checkpoint import latest_step_dir, load_state
 
     run = os.path.join(WORK, "train_run")
@@ -2051,8 +2075,7 @@ def train_path(dev, gpu):
            "--device", "cuda"]
     kernels = {"bottleneck_train_fwd": bottleneck_train.train_stack_forward,
                "bottleneck_train_bwd": bottleneck_train.train_stack_backward}
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     metrics = os.path.join(run, "metrics.jsonl")
@@ -2060,7 +2083,7 @@ def train_path(dev, gpu):
                 "--epochs", "1", "--out", run, "--metrics", metrics])
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
     if any(c == 0 for c in launches.values()):
         fail(f"train kernels never launched on the train path: {launches}")
     with open(metrics) as f:
@@ -2085,17 +2108,14 @@ def train_path(dev, gpu):
         fail(f"checkpoint step {state.step} != 4")
     val = SyntheticVideoDataset(n_classes=5, clips_per_class=2, height=256,
                                 width=320, seed=1, name="val")
-    for k in (crop_normalize.crop_normalize,
-              bottleneck.fused_bottleneck_stack,
-              similarity.episode_class_scores):
-        k.launches = 0
+    since = Launches({"episode_scores": similarity.episode_class_scores})
     t0 = time.perf_counter()
     res = tr.one_shot_validate(state, cfg, val, n_episodes=40,
                                batch_clips=10)
     val_s = time.perf_counter() - t0
     if len(res.per_episode) != 40 or not 0.0 <= res.mean_acc <= 1.0:
         fail(f"one_shot_validate bad: {res}")
-    if similarity.episode_class_scores.launches == 0:
+    if since()["episode_scores"] == 0:
         fail("one_shot_validate never reached the matcher kernel")
 
     # One fixed batch, the frames on the card: 7 steps; the first 5 must
@@ -2207,8 +2227,7 @@ def bench_path(dev, gpu, feature_ms_32: float):
                "episode_scores": similarity.episode_class_scores,
                "bottleneck_train_fwd": bottleneck_train.train_stack_forward,
                "bottleneck_train_bwd": bottleneck_train.train_stack_backward}
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     lines = {}
     for name, module, env in BENCH_RUNS:
         main = importlib.import_module(f"eov_tpu_torch.bench.{module}").main
@@ -2218,7 +2237,7 @@ def bench_path(dev, gpu, feature_ms_32: float):
                           "s": time.perf_counter() - t0, **line}),
               flush=True)
         lines[name] = line
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
 
     bad = [n for n, line in lines.items() if not line["value"] > 0]
     if bad:
@@ -2358,8 +2377,7 @@ def train_levers_path(dev, gpu):
     saved = (_S2DConv1.forward, _MaxPoolVJP.backward)
     _S2DConv1.forward = spy("stem_s2d", saved[0])
     _MaxPoolVJP.backward = staticmethod(spy("pool_vjp", saved[1]))
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     runs, live = {}, {}
     try:
         for name, lev in levers:
@@ -2387,7 +2405,7 @@ def train_levers_path(dev, gpu):
             b.synchronize()
             turns[name].append(a.elapsed_time(b))
     del live
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = since()
     if any(c == 0 for c in launches.values()):
         fail(f"kernels 8/9 never launched on the lever path: {launches}")
     f32 = {name: run(dataclasses.replace(base, compute_dtype="float32",
@@ -2544,13 +2562,12 @@ def deploy_bench_path(dev, gpu, batch):
     lines, launches = {}, {}
     capture = _FusedStepCapture(chunk=64)
     for name, module, env in DEPLOY_RUNS:
-        for k in kernels.values():
-            k.launches = 0
+        since = Launches(kernels)
         main = importlib.import_module(f"eov_tpu_torch.bench.{module}").main
         t0 = time.perf_counter()
         with capture if name == "fused_eval" else contextlib.nullcontext():
             line = _bench_line(main, env)
-        launches[name] = {n: k.launches for n, k in kernels.items()}
+        launches[name] = since()
         print(json.dumps({"bench": name, "card": gpu,
                           "s": time.perf_counter() - t0, **line}),
               flush=True)
@@ -2628,11 +2645,9 @@ def deploy_bench_path(dev, gpu, batch):
     folded = make_feature_fn(weights, cfg, dev)
     unfolded = make_feature_fn(weights, dataclasses.replace(
         cfg, fold_bn=False), dev)
-    crop_normalize.crop_normalize.launches = 0
-    bottleneck.fused_bottleneck_stack.launches = 0
+    since = Launches({"crop_normalize": crop_normalize.crop_normalize})
     a, b = unfolded(batch), folded(batch)
-    unfolded_launches = {
-        "crop_normalize": crop_normalize.crop_normalize.launches}
+    unfolded_launches = since()
     if unfolded_launches["crop_normalize"] == 0:
         fail("the fold_bn=False program did not crop with kernel 1")
     cos = float(torch.nn.functional.cosine_similarity(a, b, dim=1).min())
@@ -2804,8 +2819,7 @@ def _rank_work(rank: int, dev, work: str) -> dict:
     from eov_tpu_torch.parallel.sharded import evaluate_sharded
 
     kernels = _multi_kernels()
-    for k in kernels.values():
-        k.launches = 0
+    since = Launches(kernels)
     world = pdist.world_size()
     ds = _RenderedClips(os.path.join(work, "clips.npz"))
     weights = random_state_dict("resnet50", seed=0)
@@ -2856,7 +2870,7 @@ def _rank_work(rank: int, dev, work: str) -> dict:
         mesh)
     secs["train"] = time.perf_counter() - t0
     torch.cuda.synchronize(dev)
-    res["launches"] = {n: k.launches for n, k in kernels.items()}
+    res["launches"] = since()
     res["s"] = secs
     return res
 
@@ -3234,6 +3248,185 @@ def multi_gpu_path(dev, gpu) -> dict:
     return out
 
 
+def _planted_gaps(dev, sleep_s: float, n: int) -> dict:
+    """``n`` launches of known kernels, each followed by a host-only span
+    that sleeps ``sleep_s``: the root's ``device_gap_s`` against the idle
+    planted (each host-only stretch less the kernel time still queued when
+    it began)."""
+    from eov_tpu_torch.utils import trace
+
+    a = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16)
+
+    def kernels():
+        for _ in range(4):
+            a @ a
+
+    kernels()
+    kernel_ms = cuda_ms(kernels, repeats=9, inner=1)
+    torch.cuda.synchronize()
+    stretches = []
+    with trace.root("smoke.gaps", 0, dev) as r:
+        for _ in range(n):
+            with trace.span("smoke.launch", device=True) as launch:
+                kernels()
+            with trace.span("smoke.sleep") as host:
+                time.sleep(sleep_s)
+            stretches.append((launch.t0, host.t0))
+        torch.cuda.synchronize()
+    rep = r.report
+    # stretch i: from the sleep's start to the next launch (the root's end)
+    ends = [s[0] for s in stretches[1:]] + [r.t1]
+    host_s = [e - s[1] for s, e in zip(stretches, ends)]
+    queued = [max(kernel_ms / 1e3 - (h - t0), 0.0) for t0, h in stretches]
+    planted = sum(host_s) - sum(queued)
+    got = rep["device_gap_s"]
+    return {"sleep_s": sleep_s, "n": n, "kernel_ms": kernel_ms,
+            "planted_s": planted, "device_gap_s": got,
+            "rel_err": abs(got - planted) / planted,
+            "by_span": rep["device_gap_by_span"]}
+
+
+def _span_cost_us(dev, n: int = 20000) -> dict:
+    """Host microseconds of the always-on path inside a root on the card:
+    a host-only span, a device span after a device span (no event), a
+    host-only stretch between device spans (its two events and their
+    reading), ``count``, ``step``."""
+    from eov_tpu_torch.utils import trace
+
+    def per(fn) -> float:
+        best = float("inf")
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            best = min(best, (time.perf_counter() - t) / n * 1e6)
+        return best
+
+    def host():
+        for _ in range(n):
+            with trace.span("cost.host"):
+                pass
+
+    def device():
+        for _ in range(n):
+            with trace.span("cost.device", device=True):
+                pass
+
+    def pair():
+        for _ in range(n):
+            with trace.span("cost.device", device=True):
+                pass
+            with trace.span("cost.host"):
+                pass
+
+    def counts():
+        for _ in range(n):
+            trace.count("cost.bytes", 3)
+
+    def steps():
+        for _ in range(n):
+            trace.step()
+
+    def empty():
+        for _ in range(n):
+            pass
+
+    with trace.root("smoke.cost", 0, dev):
+        base = per(empty)
+        out = {"host_span": per(host) - base,
+               "device_span": per(device) - base,
+               "pair": per(pair) - base,
+               "count": per(counts) - base, "step": per(steps) - base}
+    out["stretch"] = out["pair"] - out["host_span"] - out["device_span"]
+    return out
+
+
+def _step_cost_us(dev, epochs: int = 20, steps: int = 16,
+                  repeats: int = 15) -> dict:
+    """Host microseconds a train step spends in ``utils/trace.py``: epochs
+    of empty steps with ``r50_finetune``'s spans and counts (32 clip reads
+    and their two counts each, the batch, the step, five device spans, the
+    three ``train.keys`` stretches inside the augment: the key split, the
+    crop draws, the dropout seed; the images, and the six launches each of
+    kernels 8 and 9), the roots' events read and reports folded; the least
+    of ``repeats`` blocks (the shared host's other work only adds to a
+    block); and one such epoch's report."""
+    from eov_tpu_torch.utils import trace
+
+    def epoch(e):
+        with trace.root("smoke.epoch", e, dev) as r:
+            for _ in range(steps):
+                for _ in range(32):
+                    with trace.span("read"):
+                        trace.count("eovc.bytes", 1)
+                        trace.count("eovc.clips")
+                with trace.span("train.batch"):
+                    pass
+                with trace.span("train.step"):
+                    with trace.span("train.h2d", device=True):
+                        pass
+                    trace.count("train.images", 96)
+                    with trace.span("train.augment", device=True):
+                        for _ in range(3):
+                            with trace.span("train.keys"):
+                                pass
+                    with trace.span("train.forward", device=True):
+                        for _ in range(6):
+                            trace.count("launch.train_stack_forward")
+                    with trace.span("train.backward", device=True):
+                        for _ in range(6):
+                            trace.count("launch.train_stack_backward")
+                    with trace.span("train.optimizer", device=True):
+                        pass
+                trace.step()
+        return r.report
+
+    best = float("inf")
+    for _ in range(repeats):
+        t = time.perf_counter()
+        for e in range(epochs):
+            rep = epoch(e)
+        best = min(best, (time.perf_counter() - t) / (epochs * steps) * 1e6)
+    return {"us_per_step": best, "report": rep}
+
+
+def trace_path(dev, gpu) -> dict:
+    """``utils/trace.py`` on the card: the planted 5 ms gaps read back
+    within 10%; a root under torch.profiler reports itself profiled; the
+    always-on cost per span, on and off the profiler, and per train step
+    (empty steps with ``r50_finetune``'s spans and counts), printed beside
+    the 50 us budget (``over_budget_us``: four host-only stretches a step,
+    each two timing events and a read, exceed it on the card's host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eov_tpu_torch.utils import trace
+
+    gaps = _planted_gaps(dev, 0.005, 20)
+    if not gaps["rel_err"] <= 0.10:
+        fail(f"device_gap_s {gaps['device_gap_s']} s against the planted "
+             f"{gaps['planted_s']} s: {gaps}")
+    if gaps["by_span"].get("smoke.sleep", 0.0) < 0.9 * gaps["planted_s"]:
+        fail(f"the planted gaps are not put down to smoke.sleep: {gaps}")
+    off = _span_cost_us(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        on = _span_cost_us(dev, n=2000)
+        with trace.root("smoke.profiled", 0, dev) as r:
+            pass
+    if not r.report["profiled"]:
+        fail("a root under torch.profiler does not report it profiled")
+    step = _step_cost_us(dev)
+    out = {"gpu": gpu, "planted_gaps": gaps, "span_cost_us_off": off,
+           "span_cost_us_profiled": on,
+           "cost_us_per_step": step["us_per_step"],
+           "over_budget_us": max(step["us_per_step"] - 50.0, 0.0),
+           "step_report": step["report"]}
+    # four host-only stretches a step (the loop, and in the augment the key
+    # split, the crop draws, the dropout seed), and the epoch's last
+    if step["report"]["device_gap_n"] != 16 * 4 + 1:
+        fail(f"the steps' host-only stretches: {step['report']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke test "
@@ -3257,15 +3450,19 @@ def main() -> int:
                           "total_s": now - t_start}), flush=True)
         t0 = now
 
-    per_source = _cuda.build_all()
-    build_s = time.perf_counter() - t0
-    print(json.dumps({"build_s": build_s, "nvcc_s": per_source}),
-          flush=True)
-    phase("build")
-    if sys.argv[1:] == ["--only", "multi_gpu_path"]:  # a quick re-check
-        print(json.dumps({"multi_gpu_path": multi_gpu_path(dev, gpu)}),
+    only = {"multi_gpu_path": multi_gpu_path, "trace_path": trace_path}
+    name = (sys.argv[2:3] or [""])[0] if sys.argv[1:2] == ["--only"] else None
+    if name not in (None, *only):
+        fail(f"--only takes one of {sorted(only)}, not {name!r}")
+    if name != "trace_path":  # the trace phase launches no kernel of ours
+        per_source = _cuda.build_all()
+        build_s = time.perf_counter() - t0
+        print(json.dumps({"build_s": build_s, "nvcc_s": per_source}),
               flush=True)
-        phase("multi_gpu_path")
+        phase("build")
+    if name is not None:  # a quick re-check of one phase
+        print(json.dumps({name: only[name](dev, gpu)}), flush=True)
+        phase(name)
         print(card_line(), flush=True)
         return 0
 
@@ -3313,6 +3510,8 @@ def main() -> int:
     print(json.dumps({"multi_gpu_path": multi_gpu_path(dev, gpu)}),
           flush=True)
     phase("multi_gpu_path")
+    print(json.dumps({"trace_path": trace_path(dev, gpu)}), flush=True)
+    phase("trace_path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     new = ("basic_stack", "maxpool_s2", "pool_bottleneck_stack")

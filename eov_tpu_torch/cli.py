@@ -49,8 +49,13 @@ EOVC JPEG shards, ``--jpeg-scale-denom``. ``train --val-class-split``
 scores each epoch on the meta-val classes and records the best in
 ``best.json``.
 
+``train --metrics`` writes each epoch's ``utils.trace`` report (seconds per
+span, counters, device gaps) in its ``epoch`` events, ``extract --metrics``
+the pass's in ``extract_done``.
+
 Every command takes ``--trace DIR`` (a ``torch.profiler`` trace of the
-command and its ``trace_meta.json``, read by ``tools/profile_summary.py``),
+command and its ``trace_meta.json``, read by ``tools/profile_summary.py``;
+the program's spans appear in it as ``eov.<span>``),
 ``--debug-nans`` (every output — features, scores, the train loss and
 gradients — is checked finite and a NaN or infinity raises, naming the
 tensor; ``train`` also runs under autograd's anomaly detection) and
@@ -752,8 +757,9 @@ def run_training(cfg, dataset, *, device, epochs: int, out: str | None = None,
     for epoch in range(start_epoch, epochs):
         state, m = tr.train_epoch(state, step_fn, cfg, dataset, epoch=epoch,
                                   mesh=mesh)
-        metrics.write("epoch", epoch=epoch, **m)
-        say(f"epoch {epoch}: {m}")
+        metrics.write("epoch", epoch=epoch, **m)  # with the epoch's report
+        shown = {k: v for k, v in m.items() if k != "report"}
+        say(f"epoch {epoch}: {shown}")
         if out and main:
             save_state(os.path.join(out, f"step_{epoch}"), state)
         pdist.barrier()

@@ -8,6 +8,9 @@ out=None)`` of the video-file and EOVC datasets decodes a whole batch,
 into a caller's buffer when ``out`` is given (``extract.py`` keeps a ring
 of them). Batching, decode overlap and the device transfer belong to
 ``extract.py``. cv2 and PIL are imported only where a frame is decoded.
+Each ``get_frames`` and ``get_batch`` of the video-file, frame-folder and
+EOVC datasets is a ``read`` span (``utils/trace.py``); the EOVC reader also
+counts the bytes and clips it returns (``eovc.bytes``, ``eovc.clips``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Protocol, Sequence
 import numpy as np
 
 from eov_tpu_torch.data import fixtures
+from eov_tpu_torch.utils import trace
 
 __all__ = ["VideoRecord", "VideoDataset", "SyntheticVideoDataset",
            "FrameFolderDataset", "VideoFileDataset", "EovcVideoDataset",
@@ -223,6 +227,10 @@ class VideoFileDataset:
             cap.release()
 
     def get_frames(self, record: VideoRecord, indices: np.ndarray) -> np.ndarray:
+        with trace.span("read"):
+            return self._frames(record, indices)
+
+    def _frames(self, record: VideoRecord, indices: np.ndarray) -> np.ndarray:
         idx = np.asarray(indices)
         needed = {int(i) for i in idx}
         if min(needed) < 0:
@@ -274,6 +282,11 @@ class VideoFileDataset:
         ``out=`` workers write their rows straight into the caller's ring
         buffer.
         """
+        with trace.span("read"):
+            return self._batch(records, indices, out)
+
+    def _batch(self, records, indices: np.ndarray,
+               out: np.ndarray | None) -> np.ndarray:
         import concurrent.futures as cf
 
         indices = np.asarray(indices)
@@ -286,7 +299,7 @@ class VideoFileDataset:
         rows: list[np.ndarray | None] = [None] * b
 
         def _one(pos: int) -> None:
-            frames = self.get_frames(records[pos], indices[pos])
+            frames = self._frames(records[pos], indices[pos])
             if out is not None:
                 if frames.shape != out.shape[1:]:
                     raise ValueError(
@@ -353,15 +366,17 @@ class FrameFolderDataset:
             return np.asarray(im.convert("RGB"))
 
     def get_frames(self, record: VideoRecord, indices: np.ndarray) -> np.ndarray:
-        frames = [
-            self._decode(
-                os.path.join(
-                    self.root, record.video_id, self.image_tmpl.format(int(i) + 1)
+        with trace.span("read"):
+            frames = [
+                self._decode(
+                    os.path.join(
+                        self.root, record.video_id,
+                        self.image_tmpl.format(int(i) + 1)
+                    )
                 )
-            )
-            for i in np.asarray(indices)
-        ]
-        return np.stack(frames)
+                for i in np.asarray(indices)
+            ]
+            return np.stack(frames)
 
 
 class EovcVideoDataset:
@@ -467,8 +482,12 @@ class EovcVideoDataset:
         return ld.load_frames(clip, idx)
 
     def get_frames(self, record: VideoRecord, indices: np.ndarray) -> np.ndarray:
-        s, i = self._index[record.video_id]
-        return self._load_one(s, i, np.asarray(indices, np.int32))
+        with trace.span("read"):
+            s, i = self._index[record.video_id]
+            clip = self._load_one(s, i, np.asarray(indices, np.int32))
+            trace.count("eovc.bytes", clip.nbytes)
+            trace.count("eovc.clips")
+            return clip
 
     def _frame_hw(self) -> tuple[int, int]:
         is_nat, ld = self._loaders[0]
@@ -488,6 +507,14 @@ class EovcVideoDataset:
         Per-shard runs that are contiguous in ``records`` decode straight
         into the output with zero extra copies.
         """
+        with trace.span("read"):
+            out = self._batch(records, indices, out)
+            trace.count("eovc.bytes", out.nbytes)
+            trace.count("eovc.clips", len(records))
+            return out
+
+    def _batch(self, records, indices: np.ndarray,
+               out: np.ndarray | None) -> np.ndarray:
         indices = np.asarray(indices, np.int32)
         b, k = len(records), indices.shape[1]
         h, w = self._frame_hw()

@@ -97,9 +97,10 @@ from eov_tpu_torch.models.resnet import (ResNet, block_names,
                                          space_to_depth_stem)
 from eov_tpu_torch.ops import preprocess
 from eov_tpu_torch.ops.crop_normalize import crop_normalize
+from eov_tpu_torch.utils import trace
 from eov_tpu_torch.utils.debug import check_finite
 from eov_tpu_torch.utils.device import resolve_device
-from eov_tpu_torch.utils.metrics import MetricsWriter, Timer
+from eov_tpu_torch.utils.metrics import MetricsWriter
 
 __all__ = ["ExtractConfig", "resolve_fused_stages", "quant_calibration",
            "make_feature_fn", "make_segment_fn", "extract_features"]
@@ -426,7 +427,9 @@ def extract_features(
     mesh=None,
 ) -> dict:
     """Extract every record not yet in the store. Returns stats
-    {total, skipped_done, extracted, failed}.
+    {total, skipped_done, extracted, failed, report}; ``report`` is the
+    pass's ``utils.trace`` report (the ``extract.pass`` root), also written
+    in the ``extract_done`` event.
 
     ``feature_fn`` overrides the ResNet program (tests swap in a cheap
     one); ``act_max`` goes to ``make_feature_fn`` (int8 scales);
@@ -445,6 +448,16 @@ def extract_features(
                                 feature_fn, dev, act_max, records, mesh)
     feature_fn = feature_fn or make_feature_fn(weights, cfg, dev,
                                                act_max=act_max)
+    with trace.root("extract.pass", device=dev) as pass_span:
+        stats = _extract(dataset, store, cfg, metrics, feature_fn, dev,
+                         records)
+    stats["report"] = pass_span.report
+    metrics.write("extract_done", **stats)
+    return stats
+
+
+def _extract(dataset, store, cfg: ExtractConfig, metrics, feature_fn, dev,
+             records) -> dict:
     done = store.done_ids()
     work = dataset.records if records is None else list(records)
     todo = [r for r in work if r.video_id not in done]
@@ -452,7 +465,6 @@ def extract_features(
     stats = {"total": len(work), "skipped_done": len(work) - len(todo),
              "extracted": 0, "failed": 0}
     since_flush = 0
-    timer = Timer()
 
     # Pooled decode: one get_batch call per batch. Whether it takes out=
     # (the buffer ring) is decided up front by its signature; where that
@@ -509,6 +521,10 @@ def extract_features(
         return arr, buf
 
     def decode(batch):
+        with trace.span("extract.decode"):
+            return _decode(batch)
+
+    def _decode(batch):
         """-> (batch size, [(records, stacked uint8 clips, ring buffer or
         None)], one group on the pooled path, else one per resolution)."""
         if can_pool:
@@ -568,16 +584,20 @@ def extract_features(
             except Exception as e:  # noqa: BLE001 — re-raised by the reader
                 put(e)
 
+        def take():
+            while True:
+                try:
+                    return q.get(timeout=0.5)
+                except queue.Empty:
+                    if not t.is_alive():
+                        raise RuntimeError("decode thread died") from None
+
         t = threading.Thread(target=producer, name="eov-decode", daemon=True)
         t.start()
         try:
             while True:
-                try:
-                    item = q.get(timeout=0.5)
-                except queue.Empty:
-                    if not t.is_alive():
-                        raise RuntimeError("decode thread died") from None
-                    continue
+                with trace.span("extract.wait"):
+                    item = take()
                 if item is None:
                     return
                 if isinstance(item, Exception):
@@ -589,16 +609,19 @@ def extract_features(
 
     def materialize(recs, feats_dev, buf):
         nonlocal since_flush
-        feats = feats_dev.cpu().numpy()
+        with trace.span("extract.d2h", device=True):
+            feats = feats_dev.cpu().numpy()
         if buf is not None:  # its batch's copy to the device is done
             _put_buf(buf)
-        for rec, f in zip(recs, feats):
-            store.put(rec.video_id, f, rec.label)
-        stats["extracted"] += len(recs)
-        since_flush += len(recs)
-        if since_flush >= cfg.flush_every:
-            store.flush()
-            since_flush = 0
+        with trace.span("extract.store"):
+            for rec, f in zip(recs, feats):
+                store.put(rec.video_id, f, rec.label)
+            stats["extracted"] += len(recs)
+            trace.count("extract.images", len(recs) * cfg.num_segments)
+            since_flush += len(recs)
+            if since_flush >= cfg.flush_every:
+                store.flush()
+                since_flush = 0
 
     pending = None  # (records, features on device, ring buffer) in flight
     for n_batch, groups in decoded():
@@ -612,17 +635,18 @@ def extract_features(
                 if buf is not None:  # the padded copy is what goes on
                     _put_buf(buf)
                     buf = None
-            feats = feature_fn(_host_batch(clips, dev))  # async on GPU
+            with trace.span("extract.features", device=True):
+                feats = feature_fn(_host_batch(clips, dev))  # async on GPU
             if pending is not None:
                 materialize(*pending)  # the previous batch drains meanwhile
             pending = (recs, feats, buf)
             n_ok += len(recs)
         metrics.write("extract_batch", n=n_ok, failed=n_batch - n_ok,
-                      seconds=timer.lap())
+                      seconds=trace.step())
     if pending is not None:
         materialize(*pending)
-    store.flush()
-    metrics.write("extract_done", **stats)
+    with trace.span("extract.store"):
+        store.flush()
     return stats
 
 
@@ -658,6 +682,19 @@ def _extract_sharded(dataset, weights, store, cfg: ExtractConfig, metrics,
     writer = mesh.frame_index == 0
     feature_fn = feature_fn or make_sharded_feature_fn(
         weights, mesh, cfg, act_max=act_max, device=dev)
+    with trace.root("extract.pass", device=dev) as pass_span:
+        stats = _sharded_pass(dataset, store, cfg, metrics, feature_fn, dev,
+                              records, mesh, lb, seg, writer)
+    stats["report"] = pass_span.report
+    metrics.write("extract_done", **stats)
+    return stats
+
+
+def _sharded_pass(dataset, store, cfg: ExtractConfig, metrics, feature_fn,
+                  dev, records, mesh, lb: int, seg, writer: bool) -> dict:
+    from eov_tpu_torch.parallel import distributed as pdist
+
+    k_local = len(range(cfg.num_segments)[seg])  # this rank's segments
     work = (pdist.process_record_shard(dataset.records, mesh)
             if records is None else list(records))
     done = store.done_ids()
@@ -669,7 +706,6 @@ def _extract_sharded(dataset, weights, store, cfg: ExtractConfig, metrics,
     n_steps = pdist.global_max(-(-len(todo) // lb))
     can_pool = hasattr(dataset, "get_batch") and not cfg.fault_inject
     since_flush = 0
-    timer = Timer()
     known = None  # a clip of this rank's resolution, for the padding
 
     def indices(rec):
@@ -700,7 +736,8 @@ def _extract_sharded(dataset, weights, store, cfg: ExtractConfig, metrics,
     pending = None  # (records, features on device) of the previous step
     for s in range(n_steps):
         batch = todo[s * lb:(s + 1) * lb]
-        clips = decode(batch)
+        with trace.span("extract.decode"):
+            clips = decode(batch)
         ok = torch.tensor([c is not None for c in clips] + [True] * (
             lb - len(clips)), dtype=torch.int32)
         if mesh.n_frame > 1:  # a clip counts only if every frame rank has it
@@ -721,29 +758,36 @@ def _extract_sharded(dataset, weights, store, cfg: ExtractConfig, metrics,
         oks = [r for r, k in zip(batch, ok.tolist()) if k]
         stats["failed"] += len(batch) - len(oks)
         frames = np.stack(good + [known] * (lb - len(good)))
-        feats = feature_fn(_host_batch(frames, dev))
+        with trace.span("extract.features", device=True):
+            feats = feature_fn(_host_batch(frames, dev))
         if pending is not None:
-            since_flush += _put_rows(store, *pending, writer)
+            since_flush += _put_rows(store, *pending, writer, k_local)
         pending = (oks, feats)
         stats["extracted"] += len(oks)
         if since_flush >= cfg.flush_every:
-            store.flush()
+            with trace.span("extract.store"):
+                store.flush()
             since_flush = 0
         metrics.write("extract_batch", n=len(oks),
-                      failed=len(batch) - len(oks), seconds=timer.lap())
+                      failed=len(batch) - len(oks), seconds=trace.step())
     if pending is not None:
-        _put_rows(store, *pending, writer)
-    store.flush()
+        _put_rows(store, *pending, writer, k_local)
+    with trace.span("extract.store"):
+        store.flush()
     pdist.barrier()
-    metrics.write("extract_done", **stats)
     return stats
 
 
-def _put_rows(store, recs, feats_dev, writer: bool) -> int:
+def _put_rows(store, recs, feats_dev, writer: bool, k: int) -> int:
     """Stage the rows of ``recs`` (the leading rows of ``feats_dev``) in
-    the store when this rank writes; returns the rows staged."""
+    the store when this rank writes; returns the rows staged. ``k``: this
+    rank's segments a clip."""
+    trace.count("extract.images", len(recs) * k)
     if not writer:
         return 0
-    for rec, f in zip(recs, feats_dev.cpu().numpy()):
-        store.put(rec.video_id, f, rec.label)
+    with trace.span("extract.d2h", device=True):
+        feats = feats_dev.cpu().numpy()
+    with trace.span("extract.store"):
+        for rec, f in zip(recs, feats):
+            store.put(rec.video_id, f, rec.label)
     return len(recs)

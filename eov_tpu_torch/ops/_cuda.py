@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from eov_tpu_torch.utils import trace
+
 __all__ = ["SOURCES", "build", "build_all", "load", "check", "stream_ptr",
            "ptr"]
 
@@ -65,7 +67,8 @@ def _command(name: str, out: Path) -> list[str]:
 
 def build(names=SOURCES) -> dict[str, float]:
     """Compile the named kernels that are not yet built, one nvcc each, all
-    started together. Returns {name: seconds} for the ones compiled."""
+    started together. Returns {name: seconds} for the ones compiled; the
+    trace counter ``cuda.build_s`` adds each one's seconds."""
     _nvcc()  # refuse before touching the build directory
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -82,6 +85,7 @@ def build(names=SOURCES) -> dict[str, float]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.perf_counter() - t0
+        trace.count("cuda.build_s", took[name])
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue

@@ -28,7 +28,7 @@ and one rounding; in a basic block (``_run_basic_chain``) y1 rounds after
 bias+ReLU and ``a2 + b2 + x`` is summed in f32 before the ReLU and one
 rounding. The plain PyTorch versions below compute exactly that and are the
 kernels' oracles. Each ``fused_*`` function picks by the tensor's device and
-counts its kernel launches in ``.launches``.
+counts its kernel launches in ``utils.trace`` (``launch.<function>``).
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from eov_tpu_torch.ops import _cuda
 from eov_tpu_torch.ops.pool import maxpool_plain
+from eov_tpu_torch.utils import trace
 
 __all__ = ["pack_bottleneck_params", "fused_bottleneck_stack",
            "bottleneck_stack_plain", "bottleneck_stack_cuda",
@@ -402,7 +403,7 @@ def bottleneck_stack_cuda(x: torch.Tensor, blocks, *, h: int,
         out = torch.empty(x.shape[0], h * w, b["w3"].shape[1],
                           dtype=x.dtype, device=x.device)
         _launch_block(x, b, out, h=h, w=w, pool=False)
-        fused_bottleneck_stack.launches += 1
+        trace.count("launch.fused_bottleneck_stack")
         x = out
     return x
 
@@ -417,9 +418,6 @@ def fused_bottleneck_stack(x: torch.Tensor, blocks, *, h: int,
     if kind == "cpu":
         return bottleneck_stack_plain(x, blocks, h=h, w=w)
     raise ValueError(f"fused_bottleneck_stack: unsupported device {x.device}")
-
-
-fused_bottleneck_stack.launches = 0
 
 
 # ------------------------------------------- kernel 5: pool + bottleneck
@@ -456,7 +454,7 @@ def pool_bottleneck_stack_cuda(x: torch.Tensor, blocks) -> torch.Tensor:
     out = torch.empty(x.shape[0], h * w, b["w3"].shape[1], dtype=x.dtype,
                       device=x.device)
     _launch_block(x, b, out, h=h, w=w, pool=True)
-    fused_pool_bottleneck_stack.launches += 1
+    trace.count("launch.fused_pool_bottleneck_stack")
     if len(blocks) > 1:
         out = bottleneck_stack_cuda(out, blocks[1:], h=h, w=w)
     return out
@@ -473,9 +471,6 @@ def fused_pool_bottleneck_stack(x: torch.Tensor, blocks) -> torch.Tensor:
         return pool_bottleneck_stack_plain(x, blocks)
     raise ValueError(f"fused_pool_bottleneck_stack: unsupported device "
                      f"{x.device}")
-
-
-fused_pool_bottleneck_stack.launches = 0
 
 
 # --------------------------------------------- kernel 4: basic-block stack
@@ -683,7 +678,7 @@ def basic_stack_cuda(x: torch.Tensor, blocks, *, h: int,
                 _cuda.ptr(w2t), _cuda.ptr(b["b2"]), _cuda.ptr(out), n, h, w,
                 c, cp, tr, g, wn, vec, stream)
             _cuda.check(code, "basic_stack")
-            fused_basic_stack.launches += 1
+            trace.count("launch.fused_basic_stack")
             x, vec = out, int(c % 8 == 0)
         return x
     tr = basic_tile_rows(lambda t: lib.basic_block_smem_bytes(w, c, t), h, w)
@@ -698,7 +693,7 @@ def basic_stack_cuda(x: torch.Tensor, blocks, *, h: int,
             _cuda.ptr(b["w2"]), _cuda.ptr(b["b2"]), _cuda.ptr(out),
             n, h, w, c, tr, stream)
         _cuda.check(code, "basic_stack")
-        fused_basic_stack.launches += 1
+        trace.count("launch.fused_basic_stack")
         x = out
     return x
 
@@ -713,6 +708,3 @@ def fused_basic_stack(x: torch.Tensor, blocks, *, h: int,
     if kind == "cpu":
         return basic_stack_plain(x, blocks, h=h, w=w)
     raise ValueError(f"fused_basic_stack: unsupported device {x.device}")
-
-
-fused_basic_stack.launches = 0

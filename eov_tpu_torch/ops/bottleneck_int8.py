@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from eov_tpu_torch.ops import _cuda
 from eov_tpu_torch.ops.bottleneck import _kmajor_tiles, _mma_weights
+from eov_tpu_torch.utils import trace
 
 __all__ = ["pack_bottleneck_params_int8", "prepare_site", "int_mm",
            "quantize_act", "fused_bottleneck_stack_int8",
@@ -375,7 +376,7 @@ def bottleneck_stack_int8_cuda(x: torch.Tensor, blocks, *, h: int,
             b2, _cuda.ptr(w3t), s3, q3, b3, sd, qd, bd, _cuda.ptr(out), n, h,
             w, cin, cmid, cout, *dims, int(proj), vec, ovec, bf16, stream)
         _cuda.check(code, "bottleneck_int8")
-        fused_bottleneck_stack_int8.launches += 1
+        trace.count("launch.fused_bottleneck_stack_int8")
         x = out
     return x
 
@@ -391,6 +392,3 @@ def fused_bottleneck_stack_int8(x: torch.Tensor, blocks, *, h: int,
         return bottleneck_stack_int8_plain(x, blocks, h=h, w=w)
     raise ValueError(f"fused_bottleneck_stack_int8: unsupported device "
                      f"{x.device}")
-
-
-fused_bottleneck_stack_int8.launches = 0

@@ -46,6 +46,7 @@ from eov_tpu_torch.ops.bottleneck import (_MAX_SMEM, _MMA_ZERO,
                                           _kmajor_tiles,
                                           bottleneck_tile_plan,
                                           stack_flops_per_img, tile_rows)
+from eov_tpu_torch.utils import trace
 
 __all__ = ["pack_train_block", "bottleneck_stack_train",
            "BottleneckStackTrain", "train_stack_forward",
@@ -443,7 +444,7 @@ def train_stack_forward_cuda(x: torch.Tensor, blocks, *, h: int, w: int,
         out = torch.empty(x.shape[0], h * w, b["w3"].shape[1],
                           dtype=torch.float32, device=x.device)
         _fwd_block_cuda(lib, x, b, out, None, None, h, w, bf16, stream)
-        train_stack_forward.launches += 1
+        trace.count("launch.train_stack_forward")
         x = out
     return x
 
@@ -579,7 +580,7 @@ def train_stack_backward_cuda(x: torch.Tensor, blocks, dy: torch.Tensor, *,
                     amode, ptr(a), ptr(g), ptr(part), ptr(dw), n, h, w, k, c,
                     taps, stream), "train_wgrad")
             dws[i][name] = dw
-        train_stack_backward.launches += 1
+        trace.count("launch.train_stack_backward")
         d = dx
     return d, dws
 
@@ -609,10 +610,6 @@ def train_stack_backward(x: torch.Tensor, blocks, dy: torch.Tensor, *,
         return train_stack_backward_plain(x, blocks, dy, h=h, w=w,
                                           dtype=dtype)
     raise ValueError(f"train_stack_backward: unsupported device {x.device}")
-
-
-train_stack_forward.launches = 0
-train_stack_backward.launches = 0
 
 
 def _flatten(blocks) -> tuple[tuple, list[torch.Tensor]]:

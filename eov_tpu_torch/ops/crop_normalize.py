@@ -20,6 +20,7 @@ import torch
 
 from eov_tpu_torch.ops import _cuda
 from eov_tpu_torch.ops.preprocess import NORM_BIAS, NORM_SCALE, center_crop
+from eov_tpu_torch.utils import trace
 
 __all__ = ["crop_normalize", "crop_normalize_plain", "crop_normalize_cuda"]
 
@@ -91,7 +92,7 @@ def crop_normalize_cuda(frames_u8: torch.Tensor, *, crop: int = 224,
         _cuda.stream_ptr(frames_u8.device),
     )
     _cuda.check(code, "crop_normalize")
-    crop_normalize.launches += 1
+    trace.count("launch.crop_normalize")
     return out
 
 
@@ -105,6 +106,3 @@ def crop_normalize(frames_u8: torch.Tensor, *, crop: int = 224,
     if kind == "cpu":
         return crop_normalize_plain(frames_u8, crop=crop, dtype=dtype)
     raise ValueError(f"crop_normalize: unsupported device {frames_u8.device}")
-
-
-crop_normalize.launches = 0

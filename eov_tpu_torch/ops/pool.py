@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from eov_tpu_torch.ops import _cuda
+from eov_tpu_torch.utils import trace
 
 __all__ = ["maxpool_3x3_s2_nonneg", "maxpool_plain", "maxpool_cuda",
            "maxpool_3x3_s2_vjp"]
@@ -73,7 +74,7 @@ def maxpool_cuda(x: torch.Tensor) -> torch.Tensor:
         _cuda.ptr(x), _cuda.ptr(out), n, h, w, c,
         int(x.dtype == torch.bfloat16), _cuda.stream_ptr(x.device))
     _cuda.check(code, "maxpool_s2")
-    maxpool_3x3_s2_nonneg.launches += 1
+    trace.count("launch.maxpool_3x3_s2_nonneg")
     return out
 
 
@@ -86,9 +87,6 @@ def maxpool_3x3_s2_nonneg(x: torch.Tensor) -> torch.Tensor:
     if kind == "cpu":
         return maxpool_plain(x)
     raise ValueError(f"maxpool_3x3_s2_nonneg: unsupported device {x.device}")
-
-
-maxpool_3x3_s2_nonneg.launches = 0
 
 
 class _MaxPoolVJP(torch.autograd.Function):

@@ -14,6 +14,8 @@ Counterpart of ``eov_tpu/ops/preprocess.py``:
   each clip's geometry exactly as the reference's ``jax.vmap`` over its
   per-clip function does (``prng.randint``/``bernoulli`` are bit-exact), so
   the same keys give the same crops. One draw applies to all K frames.
+  The draws (threefry on the host) run in a ``train.keys`` span, after the
+  resize is launched, so the device resizes while the host draws.
 
 The multiscale crop is the reference's gathered-weights form: the drawn
 pair's PIL resize weights, embedded in fixed-size planes and rolled by the
@@ -32,6 +34,7 @@ import torch
 
 from eov_tpu_torch import prng
 from eov_tpu_torch.ops import resize as resize_ops
+from eov_tpu_torch.utils import trace
 
 __all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "NORM_SCALE", "NORM_BIAS",
            "normalize", "center_crop", "preprocess_eval", "preprocess_train",
@@ -87,9 +90,10 @@ def preprocess_train(keys: torch.Tensor, frames_u8: torch.Tensor, *,
     with keys [B, 2] -> normalized [B, K, crop, crop, 3] in ``dtype``."""
     x = resize_ops.resize_short_side(frames_u8.to(torch.float32), scale_size)
     h, w = x.shape[-3], x.shape[-2]
-    k_top, k_left, k_flip = prng.split(keys, 3).unbind(-2)
-    tops = prng.randint(k_top, (), 0, h - crop_size + 1).tolist()
-    lefts = prng.randint(k_left, (), 0, w - crop_size + 1).tolist()
+    with trace.span("train.keys"):
+        k_top, k_left, k_flip = prng.split(keys, 3).unbind(-2)
+        tops = prng.randint(k_top, (), 0, h - crop_size + 1).tolist()
+        lefts = prng.randint(k_left, (), 0, w - crop_size + 1).tolist()
     x = torch.stack([x[b, :, t:t + crop_size, l:l + crop_size]
                      for b, (t, l) in enumerate(zip(tops, lefts))])
     return normalize(_flip(x, prng.bernoulli(k_flip)), dtype)
@@ -161,11 +165,12 @@ def preprocess_train_multiscale(keys: torch.Tensor, frames_u8: torch.Tensor,
     x = resize_ops.resize_short_side(frames_u8.to(torch.float32), scale_size)
     h, w = x.shape[-3], x.shape[-2]
     rh, cw_t, tops, lefts = _ms_weight_tables(h, w, crop_size)
-    k_scale, k_pos, k_flip = prng.split(keys, 3).unbind(-2)
-    pair = prng.randint(k_scale, (), 0, len(tops)).tolist()
-    pos = prng.randint(k_pos, (), 0, 13).tolist()
-    top = [int(tops[p, q]) for p, q in zip(pair, pos)]
-    left = [int(lefts[p, q]) for p, q in zip(pair, pos)]
+    with trace.span("train.keys"):
+        k_scale, k_pos, k_flip = prng.split(keys, 3).unbind(-2)
+        pair = prng.randint(k_scale, (), 0, len(tops)).tolist()
+        pos = prng.randint(k_pos, (), 0, 13).tolist()
+        top = [int(tops[p, q]) for p, q in zip(pair, pos)]
+        left = [int(lefts[p, q]) for p, q in zip(pair, pos)]
     wh = _rolled(rh, pair, top, 2, x.device)       # [B, crop, h]
     ww = _rolled(cw_t, pair, left, 1, x.device)    # [B, w, crop]
     y = torch.einsum("boh,bkhwc->bkowc", wh, x)

@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from eov_tpu_torch.ops import _cuda
+from eov_tpu_torch.utils import trace
 
 __all__ = ["l2_normalize", "pairwise_scores", "fused_class_scores", "predict",
            "episode_class_scores", "episode_scores_plain",
@@ -153,7 +154,7 @@ def episode_scores_cuda(query, support, mask, *,
         e, q, n, m, d, int(metric == "cosine"), vec,
         _cuda.stream_ptr(query.device))
     _cuda.check(code, "episode_scores")
-    episode_class_scores.launches += 1
+    trace.count("launch.episode_class_scores")
     return out
 
 
@@ -184,6 +185,3 @@ def episode_class_scores(query, support, mask, *, metric="cosine",
         return episode_scores_plain(query, support, mask, metric=metric)
     raise ValueError(f"episode_class_scores: unsupported device "
                      f"{query.device}")
-
-
-episode_class_scores.launches = 0

@@ -24,18 +24,26 @@ that ``utils/trace.py`` writes (``--trace DIR`` on any CLI command,
 
 The device comes from ``DIR/trace_meta.json``; without it, a trace that
 records CUDA device properties or a kernel is a CUDA trace.
+
+``idle_by_span`` reads the program's spans on the trace's clock (the
+``eov.<span>`` annotations of ``utils/trace.py``): each device idle gap of
+a CUDA trace (between the merged busy intervals) is put down to the
+innermost ``eov.`` span open, at the gap's middle, on the thread that
+launched the work ending the gap. ``main`` prints them after the top ops.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import glob
 import json
 import os
 
-__all__ = ["summarize", "load_trace", "main"]
+__all__ = ["summarize", "idle_by_span", "load_trace", "main"]
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 
 
 def load_trace(trace_dir: str) -> tuple[dict, str]:
@@ -149,6 +157,54 @@ def _close(frame: list, ops: dict) -> None:
     acc[1] += 1
 
 
+def _merged(intervals) -> list[list[float]]:
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_by_span(doc: dict, top: int = 20) -> list[dict]:
+    """The device's idle gaps by the ``eov.`` span they fall in: rows
+    ``{span, idle_us, gaps}``, most idle first (``span`` is ``outside``
+    where no span was open). [] for a trace without device events."""
+    device = sorted(_complete(doc, _DEVICE_CATS), key=lambda e: e["ts"])
+    if not device:
+        return []
+    launch = {}  # correlation -> launching thread
+    for e in _complete(doc, _RUNTIME_CATS):
+        c = (e.get("args") or {}).get("correlation")
+        if c is not None:
+            launch[c] = e.get("tid")
+    spans: dict = {}  # thread -> [(start, end, name)]
+    for e in _complete(doc, ("user_annotation",)):
+        if e["name"].startswith("eov."):
+            t0 = float(e["ts"])
+            spans.setdefault(e.get("tid"), []).append(
+                (t0, t0 + float(e["dur"]), e["name"][4:]))
+    busy = _merged((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in device)
+    starts = [float(e["ts"]) for e in device]
+    acc: dict[str, list] = {}
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        nxt = device[bisect.bisect_left(starts, b)]
+        tid = launch.get((nxt.get("args") or {}).get("correlation"))
+        mid = (a + b) / 2
+        inner = [s for s in spans.get(tid, ()) if s[0] <= mid <= s[1]]
+        name = (min(inner, key=lambda s: s[1] - s[0])[2] if inner
+                else "outside")
+        row = acc.setdefault(name, [0.0, 0])
+        row[0] += b - a
+        row[1] += 1
+    rows = [{"span": n, "idle_us": v[0], "gaps": v[1]}
+            for n, v in acc.items()]
+    rows.sort(key=lambda r: -r["idle_us"])
+    return rows[:top]
+
+
 def summarize(trace_dir: str, top: int = 20) -> list[dict]:
     """[head row, top ops by self time] of the trace under ``trace_dir``."""
     doc, device = load_trace(trace_dir)
@@ -176,6 +232,16 @@ def main(argv=None) -> int:
             name = "…" + name[-89:]
         print(f"{o['share_of_busy'] * 100:5.1f}%  {o['self_us']:>10.1f} us  "
               f"x{o['occurrences']:<5d} {name}")
+    if head["device"] != "cuda":
+        print("idle by eov span: none (a cpu trace has no device gaps)")
+        return 0
+    doc, _ = load_trace(args.trace_dir)
+    gaps = idle_by_span(doc, args.top)
+    print(f"idle by eov span ({len(gaps)} spans; each gap at its middle, "
+          "on the launching thread):")
+    for g in gaps:
+        print(f"{g['idle_us'] / (idle + 1e-9) * 100:5.1f}%  "
+              f"{g['idle_us']:>10.1f} us  x{g['gaps']:<5d} {g['span']}")
     return 0
 
 

@@ -70,7 +70,7 @@ from eov_tpu_torch.models.fused_train import (FusedStack, ResNetSlice,
 from eov_tpu_torch.models.resnet import (BatchNorm, Conv, ResNet,
                                          random_state_dict)
 from eov_tpu_torch.ops import preprocess
-from eov_tpu_torch.utils import debug
+from eov_tpu_torch.utils import debug, trace
 from eov_tpu_torch.utils.debug import check_finite
 from eov_tpu_torch.utils.device import resolve_device
 
@@ -244,50 +244,68 @@ def make_train_step(cfg: TrainConfig, device: torch.device | str = "cuda",
 
     def train_step(state: TrainState, frames_u8: torch.Tensor,
                    labels: torch.Tensor, key: torch.Tensor):
+        with trace.span("train.step"):
+            return _step(state, frames_u8, labels, key)
+
+    def _step(state, frames_u8, labels, key):
         model, opt = state.model, state.optimizer
         model.train()
-        frames = frames_u8.to(dev, non_blocking=True)
-        labels = labels.to(dev, torch.int64, non_blocking=True)
+        with trace.span("train.h2d", device=True):
+            frames = frames_u8.to(dev, non_blocking=True)
+            labels = labels.to(dev, torch.int64, non_blocking=True)
         b, k = frames.shape[0], frames.shape[1]
+        trace.count("train.images", b * k)
         bg, kg = b, k  # the global batch, of which this rank has a block
         rows = segs = slice(None)
         if sharded:
             bg, kg = b * mesh.n_data, k * mesh.n_frame
             rows = pdist.host_local_rows(mesh, bg)
             segs = pdist.host_local_frames(mesh, kg)
-        key = key.cpu()
-        x = aug(prng.split(key, bg)[rows], frames, scale_size=cfg.scale_size,
-                crop_size=cfg.crop_size, dtype=dtype)
-        noise = None
-        if cfg.dropout > 0:  # drawn at the global shape; this rank's block
-            hi, lo = prng.fold_in(key, 1).tolist()
-            gen = torch.Generator(device=dev)
-            gen.manual_seed((hi << 32) | lo)
-            noise = torch.rand((bg, kg, model.fc.in_features), generator=gen,
-                               device=dev)[rows, segs].reshape(b * k, -1)
+        with trace.span("train.augment", device=True):
+            with trace.span("train.keys"):
+                key = key.cpu()
+                keys = prng.split(key, bg)[rows]
+            # the crop draws: a train.keys span after the resize's launch
+            x = aug(keys, frames, scale_size=cfg.scale_size,
+                    crop_size=cfg.crop_size, dtype=dtype)
+            noise = None
+            if cfg.dropout > 0:  # drawn at the global shape; this rank's
+                with trace.span("train.keys"):
+                    hi, lo = prng.fold_in(key, 1).tolist()
+                gen = torch.Generator(device=dev)
+                gen.manual_seed((hi << 32) | lo)
+                noise = torch.rand((bg, kg, model.fc.in_features),
+                                   generator=gen, device=dev)[
+                    rows, segs].reshape(b * k, -1)
         with _global_bn_stats(model, mesh if sharded else None):
-            logits = forward(model, x.reshape(b * k, *x.shape[2:]), noise)
-            logits = logits.reshape(b, k, -1)
-            if sharded and mesh.n_frame > 1:  # TSN consensus over the row
-                logits = pdist.all_reduce_grad(
-                    logits.sum(dim=1), mesh.frame_group) / kg
-            else:
-                logits = logits.mean(dim=1)  # TSN consensus
-            loss = check_finite("train loss", F.cross_entropy(logits, labels))
-            acc = (logits.argmax(dim=-1) == labels).float().mean()
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
+            with trace.span("train.forward", device=True):
+                logits = forward(model, x.reshape(b * k, *x.shape[2:]),
+                                 noise)
+                logits = logits.reshape(b, k, -1)
+                if sharded and mesh.n_frame > 1:  # TSN consensus, the row
+                    logits = pdist.all_reduce_grad(
+                        logits.sum(dim=1), mesh.frame_group) / kg
+                else:
+                    logits = logits.mean(dim=1)  # TSN consensus
+                loss = check_finite("train loss",
+                                    F.cross_entropy(logits, labels))
+                acc = (logits.argmax(dim=-1) == labels).float().mean()
+            with trace.span("train.backward", device=True):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
         if sharded:
-            _mean_grads(model, mesh.size)
-            loss, acc = (pdist.all_reduce(torch.stack([loss.detach(), acc]))
-                         / mesh.size).unbind(0)
+            with trace.span("train.allreduce", device=True):
+                _mean_grads(model, mesh.size)
+                loss, acc = (pdist.all_reduce(
+                    torch.stack([loss.detach(), acc])) / mesh.size).unbind(0)
         if debug.enabled():
             for name, p in model.named_parameters():
                 if p.grad is not None:
                     check_finite(f"gradient of {name}", p.grad)
-        for group in opt.param_groups:
-            group["lr"] = learning_rate(cfg, state.step)
-        opt.step()
+        with trace.span("train.optimizer", device=True):
+            for group in opt.param_groups:
+                group["lr"] = learning_rate(cfg, state.step)
+            opt.step()
         state.step += 1
         return state, {"loss": loss.detach(), "accuracy": acc}
 
@@ -437,7 +455,9 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
     the port feeds the reference's batches with the reference's keys. Clips
     are bucketed per frame resolution and a step runs whenever a bucket
     fills; a bucket's tail is wrap-padded to a full batch.
-    Returns (state, {"loss", "accuracy", "steps", "clips"}).
+    Returns (state, {"loss", "accuracy", "steps", "clips", "report"}):
+    ``report`` is the epoch's ``utils.trace`` report (the ``train.epoch``
+    root: seconds per span, counters, device gaps).
 
     With a mesh of more than one rank (``step_fn`` from
     ``make_train_step(mesh=)``): the reference's pod loop (``_epoch_sharded``).
@@ -445,6 +465,14 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
     if mesh is not None and mesh.size > 1:
         return _epoch_sharded(state, step_fn, cfg, dataset, epoch, mesh)
     dev = next(state.model.parameters()).device
+    with trace.root("train.epoch", epoch, dev) as epoch_span:
+        state, out = _epoch(state, step_fn, cfg, dataset, epoch, dev)
+    out["report"] = epoch_span.report
+    return state, out
+
+
+def _epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig, dataset,
+           epoch: int, dev: torch.device) -> tuple:
     rng = np.random.default_rng(cfg.seed + epoch)
     order = rng.permutation(len(dataset.records))
     key = prng.key(cfg.seed + epoch)
@@ -453,12 +481,14 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
 
     def run_step(clips, labels):
         nonlocal state, last, n_steps, key
-        frames = torch.from_numpy(np.stack(clips))
-        if dev.type == "cuda":
-            frames = frames.pin_memory()
-        key, sub = prng.split(key, 2).unbind(0)
-        state, last = step_fn(state, frames,
-                              torch.tensor(labels, dtype=torch.int64), sub)
+        with trace.span("train.batch"):
+            frames = torch.from_numpy(np.stack(clips))
+            if dev.type == "cuda":
+                frames = frames.pin_memory()
+            key, sub = prng.split(key, 2).unbind(0)
+            labels = torch.tensor(labels, dtype=torch.int64)
+        state, last = step_fn(state, frames, labels, sub)
+        trace.step()
         n_steps += 1
 
     buckets: dict[tuple, tuple[list, list]] = {}
@@ -500,13 +530,22 @@ def _epoch_sharded(state: TrainState, step_fn: Callable, cfg: TrainConfig,
     step; a dataset of several resolutions is refused (a rank cannot see
     the others' frames, so the single-process bucketing has no sharded
     form). The state starts from rank 0's."""
+    dev = next(state.model.parameters()).device
+    with trace.root("train.epoch", epoch, dev) as epoch_span:
+        state, out = _sharded(state, step_fn, cfg, dataset, epoch, mesh, dev)
+    out["report"] = epoch_span.report
+    return state, out
+
+
+def _sharded(state: TrainState, step_fn: Callable, cfg: TrainConfig, dataset,
+             epoch: int, mesh, dev: torch.device) -> tuple:
     from eov_tpu_torch.parallel import distributed as pdist
 
     b = cfg.batch_clips
     rows = pdist.host_local_rows(mesh, b)
     segs = pdist.host_local_frames(mesh, cfg.num_segments)
-    state = sync_state(state)
-    dev = next(state.model.parameters()).device
+    with trace.span("train.allreduce", device=True):
+        state = sync_state(state)
     rng = np.random.default_rng(cfg.seed + epoch)
     order = rng.permutation(len(dataset.records))
     key = prng.key(cfg.seed + epoch)
@@ -541,12 +580,14 @@ def _epoch_sharded(state: TrainState, step_fn: Callable, cfg: TrainConfig,
                     "multi-GPU training: the ranks decoded different frame "
                     f"resolutions (this rank: {shape0}) — resolution-"
                     "normalize the storage (pack_eovc)")
-        frames = torch.from_numpy(np.stack(clips))
-        if dev.type == "cuda":
-            frames = frames.pin_memory()
-        key, sub = prng.split(key, 2).unbind(0)
-        state, last = step_fn(state, frames,
-                              torch.tensor(labels, dtype=torch.int64), sub)
+        with trace.span("train.batch"):
+            frames = torch.from_numpy(np.stack(clips))
+            if dev.type == "cuda":
+                frames = frames.pin_memory()
+            key, sub = prng.split(key, 2).unbind(0)
+            labels = torch.tensor(labels, dtype=torch.int64)
+        state, last = step_fn(state, frames, labels, sub)
+        trace.step()
     out = {k: float(v) for k, v in last.items()}
     out.update(steps=len(samples) // b, clips=n)
     return state, out

@@ -1,8 +1,9 @@
-"""Structured run metrics: a jsonl sink and a wall-clock timer.
+"""Structured run metrics: a jsonl sink.
 
 Counterpart of ``eov_tpu/utils/metrics.py``: one JSON object per event
-(resolved config, per-batch times, final accuracy) appended to a
-``metrics.jsonl`` so runs are machine-comparable.
+(resolved config, per-batch times, final accuracy, each epoch's or pass's
+``utils.trace`` report) appended to a ``metrics.jsonl`` so runs are
+machine-comparable. Times come from ``utils/trace.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import threading
 import time
 from typing import IO, Any
 
-__all__ = ["MetricsWriter", "Timer"]
+__all__ = ["MetricsWriter"]
 
 
 class MetricsWriter:
@@ -39,16 +40,3 @@ class MetricsWriter:
         if self._f is not None:
             self._f.close()
             self._f = None
-
-
-class Timer:
-    """Wall-clock phase timer. Device work is asynchronous: fence it with
-    ``torch.cuda.synchronize()`` before a lap that should include it."""
-
-    def __init__(self):
-        self._t0 = time.perf_counter()
-
-    def lap(self) -> float:
-        now = time.perf_counter()
-        dt, self._t0 = now - self._t0, now
-        return dt

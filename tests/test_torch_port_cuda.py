@@ -17,8 +17,14 @@ from eov_tpu_torch.models.resnet import fold_batchnorm, random_state_dict
 from eov_tpu_torch.ops import bottleneck, crop_normalize, pool, similarity
 from eov_tpu_torch.ops import bottleneck_int8 as bi
 from eov_tpu_torch.ops import bottleneck_train as bt
+from eov_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(kernel) -> float:
+    """The wrapper's kernel launches so far (its ``launch.<name>`` count)."""
+    return trace.counter(f"launch.{kernel.__name__}")
 
 
 @pytest.fixture
@@ -115,10 +121,10 @@ def test_episode_scores(dev, metric, fusion):
     m = torch.from_numpy((rng.random((4, 5, 3)) > 0.3).astype(
         np.float32)).to(dev)
     m[..., 0] = 1
-    before = similarity.episode_class_scores.launches
+    before = launches(similarity.episode_class_scores)
     got = similarity.episode_class_scores(q, s, m, metric=metric,
                                           fusion=fusion)
-    assert similarity.episode_class_scores.launches == before + 1
+    assert launches(similarity.episode_class_scores) == before + 1
     want = similarity.episode_class_scores(q.cpu(), s.cpu(), m.cpu(),
                                            metric=metric, fusion=fusion)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
@@ -182,9 +188,9 @@ def test_folded_forward_gpu_matches_cpu(dev):
                             "resnet50")
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (2, 96, 96, 3)).astype(np.float32))
-    before = bottleneck.fused_bottleneck_stack.launches
+    before = launches(bottleneck.fused_bottleneck_stack)
     got = folded_feature_apply(folded, x.to(dev), dtype=torch.float32)
-    assert bottleneck.fused_bottleneck_stack.launches == before + 3
+    assert launches(bottleneck.fused_bottleneck_stack) == before + 3
     want = folded_feature_apply(folded, x, dtype=torch.float32)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
@@ -234,7 +240,8 @@ def test_train_stack_kernels(dev, h, w, cin, cmid, cout, proj, dtype):
     dy = torch.from_numpy(rng.normal(0, 1, (3, h * w, cout)).astype(
         np.float32)).to(dev)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    f0, b0 = bt.train_stack_forward.launches, bt.train_stack_backward.launches
+    f0 = launches(bt.train_stack_forward)
+    b0 = launches(bt.train_stack_backward)
     got = bt.train_stack_forward_cuda(x, blocks, h=h, w=w, dtype=dtype)
     want = bt.train_stack_forward_plain(x, blocks, h=h, w=w, dtype=dtype)
     assert _rel(got, want) < tol
@@ -242,8 +249,8 @@ def test_train_stack_kernels(dev, h, w, cin, cmid, cout, proj, dtype):
                                            dtype=dtype)
     dx_p, dws_p = bt.train_stack_backward_plain(x, blocks, dy, h=h, w=w,
                                                 dtype=dtype)
-    assert bt.train_stack_forward.launches == f0 + 3
-    assert bt.train_stack_backward.launches == b0 + 3
+    assert launches(bt.train_stack_forward) == f0 + 3
+    assert launches(bt.train_stack_backward) == b0 + 3
     pairs = [("dx", dx, dx_p)] + [(f"{i}.{k}", d[k], p[k]) for i, (d, p)
                                   in enumerate(zip(dws, dws_p)) for k in p]
     for name, g, p in pairs:
@@ -367,10 +374,10 @@ def test_train_stack_autograd_on_gpu(dev):
         fn(xb, bl).sin().sum().backward()
         return [xb.grad] + [b[k].grad for b in bl for k in b if k[0] == "w"]
 
-    f0 = bt.train_stack_forward.launches
+    f0 = launches(bt.train_stack_forward)
     got = grads(dev, lambda xb, bl: bt.bottleneck_stack_train(
         xb, bl, h=5, w=6, dtype=torch.float32))
-    assert bt.train_stack_forward.launches == f0 + 2
+    assert launches(bt.train_stack_forward) == f0 + 2
 
     def plain(xb, bl):
         for b in bl:
@@ -426,9 +433,9 @@ def test_int8_stack_bitwise(dev, h, w, cin, cmid, cout, proj, dtype):
     blocks = _int8_blocks(rng, cin, cmid, cout, 3, dev, proj)
     x = torch.from_numpy((rng.standard_normal((3, h * w, cin)) * 0.7).astype(
         np.float32)).to(dev, dtype)
-    before = bi.fused_bottleneck_stack_int8.launches
+    before = launches(bi.fused_bottleneck_stack_int8)
     got = bi.fused_bottleneck_stack_int8(x, blocks, h=h, w=w)
-    assert bi.fused_bottleneck_stack_int8.launches == before + 3
+    assert launches(bi.fused_bottleneck_stack_int8) == before + 3
     want = bi.bottleneck_stack_int8_plain(x, blocks, h=h, w=w)
     assert got.dtype == dtype and torch.equal(got, want)
     assert float((want != 0).float().mean()) > 0.3  # not all clipped to 0
@@ -478,9 +485,9 @@ def test_int8_stack_resnet50_stage1(dev, dtype):
     gen = torch.Generator(device=dev).manual_seed(8)
     x = torch.relu(torch.randn(8, 56 * 56, 64, generator=gen,
                                device=dev)).to(dtype)
-    before = bi.fused_bottleneck_stack_int8.launches
+    before = launches(bi.fused_bottleneck_stack_int8)
     got = bi.fused_bottleneck_stack_int8(x, blocks, h=56, w=56)
-    assert bi.fused_bottleneck_stack_int8.launches == before + 3
+    assert launches(bi.fused_bottleneck_stack_int8) == before + 3
     want = bi.bottleneck_stack_int8_plain(x, blocks, h=56, w=56)
     assert got.dtype == dtype and torch.equal(got, want)
     assert float((want != 0).float().mean()) > 0.3
@@ -564,10 +571,10 @@ def test_quant_forward_gpu_matches_cpu(dev):
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (2, 64, 64, 3)).astype(np.float32))
     qv = tq.calibrate_and_quantize(folded, x, arch="resnet50")
-    before = bi.fused_bottleneck_stack_int8.launches
+    before = launches(bi.fused_bottleneck_stack_int8)
     got = tq.quant_feature_apply(qv, x.to(dev), dtype=torch.float32,
                                  fused_stages=(1,))
-    assert bi.fused_bottleneck_stack_int8.launches == before + 3
+    assert launches(bi.fused_bottleneck_stack_int8) == before + 3
     want = tq.quant_feature_apply(qv, x, dtype=torch.float32,
                                   fused_stages=(1,))
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
@@ -583,9 +590,9 @@ def test_maxpool_kernel_equal(dev, shape, dtype):
     max is no arithmetic; C = 5 takes the scalar path)."""
     g = torch.Generator(device=dev).manual_seed(sum(shape))
     x = torch.relu(torch.randn(*shape, generator=g, device=dev)).to(dtype)
-    before = pool.maxpool_3x3_s2_nonneg.launches
+    before = launches(pool.maxpool_3x3_s2_nonneg)
     got = pool.maxpool_3x3_s2_nonneg(x)
-    assert pool.maxpool_3x3_s2_nonneg.launches == before + 1
+    assert launches(pool.maxpool_3x3_s2_nonneg) == before + 1
     assert torch.equal(got, pool.maxpool_plain(x))
     lib = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
     assert torch.equal(got, lib)
@@ -632,9 +639,9 @@ def _check_bottleneck_per_block(x, blocks, h, w):
                       / bottleneck.bf16_ulp(top)).max())
         assert ulps <= 2, ulps
         xs = want
-    before = bottleneck.fused_bottleneck_stack.launches
+    before = launches(bottleneck.fused_bottleneck_stack)
     got = bottleneck.fused_bottleneck_stack(x, blocks, h=h, w=w)
-    assert bottleneck.fused_bottleneck_stack.launches == before + len(blocks)
+    assert launches(bottleneck.fused_bottleneck_stack) == before + len(blocks)
     want = bottleneck.bottleneck_stack_plain(x, blocks, h=h, w=w)
     cos = float(F.cosine_similarity(got.float().flatten(1),
                                     want.float().flatten(1), dim=1).min())
@@ -702,9 +709,9 @@ def test_basic_stack_kernel(dev, h, w, c, dtype):
     blocks = _basic_blocks(rng, c, 2, dev, dtype)
     x = torch.relu(torch.from_numpy(rng.standard_normal(
         (3, h * w, c)).astype(np.float32))).to(dev, dtype)
-    before = bottleneck.fused_basic_stack.launches
+    before = launches(bottleneck.fused_basic_stack)
     got = bottleneck.fused_basic_stack(x, blocks, h=h, w=w)
-    assert bottleneck.fused_basic_stack.launches == before + 2
+    assert launches(bottleneck.fused_basic_stack) == before + 2
     want = bottleneck.basic_stack_plain(x, blocks, h=h, w=w)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
@@ -729,9 +736,9 @@ def _check_full_scale(x, blocks, h, w):
                       / bottleneck.bf16_ulp(top)).max())
         assert ulps <= 2, ulps
         xs = want
-    before = bottleneck.fused_basic_stack.launches
+    before = launches(bottleneck.fused_basic_stack)
     got = bottleneck.fused_basic_stack(x, blocks, h=h, w=w)
-    assert bottleneck.fused_basic_stack.launches == before + len(blocks)
+    assert launches(bottleneck.fused_basic_stack) == before + len(blocks)
     want = bottleneck.basic_stack_plain(x, blocks, h=h, w=w)
     cos = float(F.cosine_similarity(got.float().flatten(1),
                                     want.float().flatten(1), dim=1).min())
@@ -786,11 +793,11 @@ def test_pool_stack_kernel(dev, h2, w2, dtype):
     n = 2
     x = torch.relu(torch.from_numpy(rng.standard_normal(
         (n, h2, w2, cin)).astype(np.float32))).to(dev, dtype)
-    k5, k2 = (bottleneck.fused_pool_bottleneck_stack.launches,
-              bottleneck.fused_bottleneck_stack.launches)
+    k5, k2 = (launches(bottleneck.fused_pool_bottleneck_stack),
+              launches(bottleneck.fused_bottleneck_stack))
     got = bottleneck.fused_pool_bottleneck_stack(x, blocks)
-    assert bottleneck.fused_pool_bottleneck_stack.launches == k5 + 1
-    assert bottleneck.fused_bottleneck_stack.launches == k2 + 2
+    assert launches(bottleneck.fused_pool_bottleneck_stack) == k5 + 1
+    assert launches(bottleneck.fused_bottleneck_stack) == k2 + 2
     h, w = h2 // 2, w2 // 2
     ref = bottleneck.bottleneck_stack_cuda(
         pool.maxpool_cuda(x).reshape(n, h * w, cin), blocks, h=h, w=w)
@@ -822,10 +829,10 @@ def test_pool_stack_bf16_refuses_wide_input(dev):
     rng = np.random.default_rng(7)
     blocks = _blocks(rng, 72, 16, 40, 1, dev, torch.bfloat16)
     x = torch.zeros(1, 10, 12, 72, device=dev, dtype=torch.bfloat16)
-    before = bottleneck.fused_pool_bottleneck_stack.launches
+    before = launches(bottleneck.fused_pool_bottleneck_stack)
     with pytest.raises(ValueError, match="64 channels"):
         bottleneck.fused_pool_bottleneck_stack(x, blocks)
-    assert bottleneck.fused_pool_bottleneck_stack.launches == before
+    assert launches(bottleneck.fused_pool_bottleneck_stack) == before
 
 
 def test_basic_pool_forward_gpu_matches_cpu(dev):
@@ -843,10 +850,10 @@ def test_basic_pool_forward_gpu_matches_cpu(dev):
               bottleneck.fused_bottleneck_stack: 2})):
         folded = fold_batchnorm(random_state_dict(arch, seed=3, width=16),
                                 arch)
-        before = {k: k.launches for k in launched}
+        before = {k: launches(k) for k in launched}
         got = folded_feature_apply(folded, x.to(dev), arch=arch,
                                    dtype=torch.float32, **opts)
-        assert {k: k.launches - before[k] for k in launched} == launched
+        assert {k: launches(k) - before[k] for k in launched} == launched
         want = folded_feature_apply(folded, x, arch=arch,
                                     dtype=torch.float32, **opts)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -899,9 +906,9 @@ def test_matcher_switch_on_the_card(dev):
     table = FeatureTable(feats, torch.full((12,), 6, device=dev))
     runs = {}
     for m in ("auto", "pallas", "xla"):
-        similarity.episode_class_scores.launches = 0
+        before = launches(similarity.episode_class_scores)
         runs[m] = evaluate(table, EvalConfig(n_episodes=128, matcher=m))
-        launched = similarity.episode_class_scores.launches
+        launched = launches(similarity.episode_class_scores) - before
         assert (launched == 0) == (m == "xla"), (m, launched)
     assert np.array_equal(runs["auto"].per_episode, runs["pallas"].per_episode)
     agree = np.mean(runs["auto"].per_episode == runs["xla"].per_episode)

@@ -404,8 +404,10 @@ def test_extract_pooled_equals_per_record_and_reference(tmp_path):
         st = MemoryFeatureStore(class_names=ds.class_names)
         stats = extract.extract_features(d, None, st, cfg, feature_fn=fn,
                                          device="cpu")
+        report = stats.pop("report")
         assert stats == {"total": 9, "skipped_done": 0, "extracted": 9,
                          "failed": 0}
+        assert report["counters"]["eovc.clips"] == 9
         feats[name] = st.load_all()
     for vid, (f, _) in feats["pooled"].items():
         assert torch.equal(torch.from_numpy(f),

@@ -165,8 +165,10 @@ def test_extract_records_with_padded_batches():
         st = MemoryFeatureStore(class_names=ds.class_names)
         stats = extract_features(ds, weights, st, cfg, feature_fn=counted,
                                  device="cpu", records=recs)
+        report = stats.pop("report")
         assert stats == {"total": 7, "skipped_done": 0, "extracted": 7,
                          "failed": 0}
+        assert report["spans"]["extract.features"]["n"] == 3
         assert seen == ([3, 3, 3] if pad else [3, 3, 1])
         stores.append(st.load_all())
     assert sorted(stores[0]) == sorted(r.video_id for r in recs)
@@ -259,6 +261,25 @@ def test_profile_summary_hand_built_trace(tmp_path):
     assert rows[2] == {"op": "k2", "self_us": 10.0, "avg_us": 10.0,
                        "occurrences": 1, "share_of_busy": 0.25}
     assert len(rows) == 3
+    # The program's spans: gaps [115, 130] (mid 122.5) and [150, 160]
+    # (mid 155) end at k1 and the memcpy, launched by threads 1 and 2.
+    doc = {"traceEvents": [
+        {**e, "args": {"correlation": c}} if c else e
+        for e, c in zip(ev, (None, None, 3, 4, None, None))] + [
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 118.0, "dur": 1.0, "tid": 1, "args": {"correlation": 3}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
+         "ts": 152.0, "dur": 1.0, "tid": 2, "args": {"correlation": 4}},
+        {"ph": "X", "cat": "user_annotation", "name": "eov.train.step",
+         "ts": 100.0, "dur": 100.0, "tid": 1},
+        {"ph": "X", "cat": "user_annotation", "name": "eov.train.keys",
+         "ts": 120.0, "dur": 5.0, "tid": 1},
+        {"ph": "X", "cat": "user_annotation", "name": "eov.read",
+         "ts": 150.0, "dur": 6.0, "tid": 1}]}
+    assert profile_summary.idle_by_span(doc) == [
+        {"span": "train.keys", "idle_us": 15.0, "gaps": 1},
+        {"span": "outside", "idle_us": 10.0, "gaps": 1}]
+    assert profile_summary.idle_by_span({"traceEvents": ev[4:]}) == []
 
 
 def test_profile_summary_cuda_trace_without_kernels_raises(tmp_path):
@@ -304,7 +325,18 @@ def test_trace_of_a_cli_extract_parses(tmp_path, capsys):
     capsys.readouterr()
     assert profile_summary.main([tdir, "--top", "3"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
-    assert out[0].startswith("cpu busy ") and len(out) == 4
+    assert out[0].startswith("cpu busy ") and len(out) == 5
+    assert out[-1].startswith("idle by eov span: none")
+    # The program's spans are in the capture, nested as they ran.
+    doc, _ = profile_summary.load_trace(tdir)
+    ann = [e for e in doc["traceEvents"] if e.get("cat") == "user_annotation"
+           and e["name"].startswith("eov.")]
+    names = {e["name"] for e in ann}
+    assert {"eov.extract.pass", "eov.extract.features", "eov.extract.d2h",
+            "eov.extract.store", "eov.extract.decode"} <= names
+    outer = next(e for e in ann if e["name"] == "eov.extract.pass")
+    for e in ann:
+        assert outer["ts"] <= e["ts"] <= outer["ts"] + outer["dur"]
     # store-info runs no PyTorch op: an empty summary, not an error.
     sdir = str(tmp_path / "trace_info")
     assert cli.main(["store-info", "--store", str(tmp_path / "s"),
