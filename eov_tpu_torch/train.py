@@ -56,6 +56,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import queue
+import threading
 from typing import Callable
 
 import numpy as np
@@ -455,6 +457,12 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
     the port feeds the reference's batches with the reference's keys. Clips
     are bucketed per frame resolution and a step runs whenever a bucket
     fills; a bucket's tail is wrap-padded to a full batch.
+
+    The clips are read on the calling thread, one batch ahead of the step;
+    a thread (``_Stacker``) stacks each batch, page-locked when the state
+    is on a GPU, while the step before it runs. It is joined before the
+    function returns or raises.
+
     Returns (state, {"loss", "accuracy", "steps", "clips", "report"}):
     ``report`` is the epoch's ``utils.trace`` report (the ``train.epoch``
     root: seconds per span, counters, device gaps).
@@ -471,50 +479,76 @@ def train_epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig,
     return state, out
 
 
-def _epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig, dataset,
-           epoch: int, dev: torch.device) -> tuple:
+def _samples(cfg: TrainConfig, dataset, epoch: int) -> list:
+    """The epoch's (record, TSN indices) in order: the permutation, then
+    each clip's indices, from one generator, as the reference draws them
+    between its reads."""
     rng = np.random.default_rng(cfg.seed + epoch)
-    order = rng.permutation(len(dataset.records))
-    key = prng.key(cfg.seed + epoch)
-    last: dict = {}
-    n_steps = n_clips = 0
+    recs = [dataset.records[i] for i in rng.permutation(len(dataset.records))]
+    return [(r, _tsn_train_indices(rng, r.num_frames, cfg.num_segments))
+            for r in recs]
 
-    def run_step(clips, labels):
-        nonlocal state, last, n_steps, key
-        with trace.span("train.batch"):
-            frames = torch.from_numpy(np.stack(clips))
-            if dev.type == "cuda":
-                frames = frames.pin_memory()
-            key, sub = prng.split(key, 2).unbind(0)
-            labels = torch.tensor(labels, dtype=torch.int64)
-        state, last = step_fn(state, frames, labels, sub)
-        trace.step()
-        n_steps += 1
 
+def _bucketed(dataset, samples: list, b: int):
+    """The single-process epoch's batches in order, as (clips, labels,
+    clips read): a batch whenever a resolution's bucket fills, then each
+    bucket's tail wrap-padded, in the order the buckets first appeared."""
     buckets: dict[tuple, tuple[list, list]] = {}
-    for i in order:
-        r = dataset.records[i]
-        clip = dataset.get_frames(
-            r, _tsn_train_indices(rng, r.num_frames, cfg.num_segments))
-        n_clips += 1
-        clips, labels = buckets.setdefault(clip.shape[1:3], ([], []))
+    for r, idx in samples:
+        clip = dataset.get_frames(r, idx)
+        hw = clip.shape[1:3]
+        clips, labels = buckets.setdefault(hw, ([], []))
         clips.append(clip)
         labels.append(r.label)
-        if len(clips) == cfg.batch_clips:
-            run_step(clips, labels)
-            clips.clear()
-            labels.clear()
+        if len(clips) == b:
+            yield clips, labels, b
+            buckets[hw] = ([], [])  # keeps the bucket's place in the order
     for clips, labels in buckets.values():
         if not clips:
             continue
         n0 = len(clips)
-        for j in range(cfg.batch_clips - n0):  # wrap-pad the tail
+        for j in range(b - n0):  # wrap-pad the tail
             clips.append(clips[j % n0])
             labels.append(labels[j % n0])
-        run_step(clips, labels)
-    out = {k: float(v) for k, v in last.items()}
-    out.update(steps=n_steps, clips=n_clips)
-    return state, out
+        yield clips, labels, n0
+
+
+class _Steps:
+    """The loop's side of the stacking thread: ``run()`` takes the oldest
+    batch handed over, splits the step key and runs the step."""
+
+    def __init__(self, ring, step_fn: Callable, state, key):
+        self.ring, self.step_fn, self.state, self.key = (ring, step_fn,
+                                                         state, key)
+        self.last: dict = {}
+        self.steps = 0
+
+    def run(self) -> None:
+        with trace.span("train.batch"):
+            frames, labels, _ = self.ring.take()
+            self.key, sub = prng.split(self.key, 2).unbind(0)
+            labels = torch.tensor(labels, dtype=torch.int64)
+        self.state, self.last = self.step_fn(self.state, frames, labels, sub)
+        trace.step()
+        self.steps += 1
+
+
+def _epoch(state: TrainState, step_fn: Callable, cfg: TrainConfig, dataset,
+           epoch: int, dev: torch.device) -> tuple:
+    n_clips = 0
+    samples = _samples(cfg, dataset, epoch)
+    with _Stacker(dev) as ring:
+        steps = _Steps(ring, step_fn, state, prng.key(cfg.seed + epoch))
+        for clips, labels, n in _bucketed(dataset, samples, cfg.batch_clips):
+            n_clips += n
+            ring.put(clips, labels, n)
+            if ring.pending > 1:  # it stacks while the batch before it steps
+                steps.run()
+        while ring.pending:
+            steps.run()
+    out = {k: float(v) for k, v in steps.last.items()}
+    out.update(steps=steps.steps, clips=n_clips)
+    return steps.state, out
 
 
 def _epoch_sharded(state: TrainState, step_fn: Callable, cfg: TrainConfig,
@@ -546,48 +580,111 @@ def _sharded(state: TrainState, step_fn: Callable, cfg: TrainConfig, dataset,
     segs = pdist.host_local_frames(mesh, cfg.num_segments)
     with trace.span("train.allreduce", device=True):
         state = sync_state(state)
-    rng = np.random.default_rng(cfg.seed + epoch)
-    order = rng.permutation(len(dataset.records))
-    key = prng.key(cfg.seed + epoch)
-    samples = [(int(i), _tsn_train_indices(
-        rng, dataset.records[i].num_frames, cfg.num_segments))
-        for i in order]
+    samples = _samples(cfg, dataset, epoch)
     n = len(samples)
     n0 = n % b
     if n0:
         tail = samples[n - n0:]
         samples += [tail[j % n0] for j in range(b - n0)]
-    last: dict = {}
     shape0 = None
-    for s in range(len(samples) // b):
-        clips, labels = [], []
-        for i, idx in samples[s * b:(s + 1) * b][rows]:
-            r = dataset.records[i]
-            clip = dataset.get_frames(r, idx[segs])
-            if shape0 is None:
-                shape0 = clip.shape[1:3]
-            elif clip.shape[1:3] != shape0:
-                raise ValueError(
-                    "multi-GPU training requires resolution-normalized "
-                    f"storage: saw {clip.shape[1:3]} after {shape0} — pack "
-                    "to EOVC (tools/pack_eovc) or pre-resize")
-            clips.append(clip)
-            labels.append(r.label)
-        if s == 0:
-            code = shape0[0] * 131072 + shape0[1]
-            if pdist.global_max(code) != -pdist.global_max(-code):
-                raise ValueError(
-                    "multi-GPU training: the ranks decoded different frame "
-                    f"resolutions (this rank: {shape0}) — resolution-"
-                    "normalize the storage (pack_eovc)")
-        with trace.span("train.batch"):
-            frames = torch.from_numpy(np.stack(clips))
-            if dev.type == "cuda":
-                frames = frames.pin_memory()
-            key, sub = prng.split(key, 2).unbind(0)
-            labels = torch.tensor(labels, dtype=torch.int64)
-        state, last = step_fn(state, frames, labels, sub)
-        trace.step()
-    out = {k: float(v) for k, v in last.items()}
-    out.update(steps=len(samples) // b, clips=n)
-    return state, out
+    with _Stacker(dev) as ring:
+        steps = _Steps(ring, step_fn, state, prng.key(cfg.seed + epoch))
+        for s in range(len(samples) // b):
+            clips, labels = [], []
+            for r, idx in samples[s * b:(s + 1) * b][rows]:
+                clip = dataset.get_frames(r, idx[segs])
+                if shape0 is None:
+                    shape0 = clip.shape[1:3]
+                elif clip.shape[1:3] != shape0:
+                    raise ValueError(
+                        "multi-GPU training requires resolution-normalized "
+                        f"storage: saw {clip.shape[1:3]} after {shape0} — "
+                        "pack to EOVC (tools/pack_eovc) or pre-resize")
+                clips.append(clip)
+                labels.append(r.label)
+            if s == 0:
+                code = shape0[0] * 131072 + shape0[1]
+                if pdist.global_max(code) != -pdist.global_max(-code):
+                    raise ValueError(
+                        "multi-GPU training: the ranks decoded different "
+                        f"frame resolutions (this rank: {shape0}) — "
+                        "resolution-normalize the storage (pack_eovc)")
+            ring.put(clips, labels, len(clips))
+            if ring.pending > 1:
+                steps.run()
+        while ring.pending:
+            steps.run()
+    out = {k: float(v) for k, v in steps.last.items()}
+    out.update(steps=steps.steps, clips=n)
+    return steps.state, out
+
+
+class _Stacker:
+    """``with _Stacker(dev) as ring:`` a thread (``eov-train-prefetch``)
+    that stacks each batch ``ring.put(clips, labels, count)`` hands it,
+    and page-locks it when the batches go to a GPU (a block of PyTorch's
+    page-locked pool, reused once the step's copy out of it is done), so
+    that the step's copy is asynchronous. ``ring.take()`` gives the oldest
+    as (frames, labels, count) and raises what the thread raised. Leaving
+    the block stops and joins the thread.
+
+    The reads stay on the loop's thread: they hold the interpreter's lock
+    nearly throughout, and a thread that waits for the lock makes every
+    small tensor operation of the lock's holder cost a wake-up. The stack
+    and the page-locked copy are one call each, which releases it."""
+
+    def __init__(self, dev: torch.device):
+        self._pin = dev.type == "cuda"
+        self._in: queue.SimpleQueue = queue.SimpleQueue()
+        self._out: queue.SimpleQueue = queue.SimpleQueue()
+        self.pending = 0  # handed over, not yet taken
+        self._thread = threading.Thread(target=self._stack,
+                                        name="eov-train-prefetch",
+                                        daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._in.put(None)
+        self._thread.join()
+        return False
+
+    def _stack(self) -> None:
+        while (item := self._in.get()) is not None:
+            clips, labels, n = item
+            try:
+                # one call each, so the lock is taken back twice a batch
+                frames = torch.stack([torch.from_numpy(c) for c in clips])
+                if self._pin:
+                    frames = frames.pin_memory()
+                self._out.put((frames, labels, n))
+            except Exception as e:  # noqa: BLE001 — raised again by take()
+                self._out.put(e)
+
+    def put(self, clips: list, labels: list, n: int) -> None:
+        self._in.put((clips, labels, n))
+        self.pending += 1
+
+    def take(self) -> tuple:
+        try:
+            item = self._out.get_nowait()
+            ready = True
+        except queue.Empty:
+            ready = False
+            while True:
+                try:
+                    item = self._out.get(timeout=0.5)
+                    break
+                except queue.Empty:
+                    if not self._thread.is_alive() and self._out.empty():
+                        raise RuntimeError(
+                            "the train prefetch thread died") from None
+        self.pending -= 1
+        if isinstance(item, Exception):
+            raise item
+        trace.count("train.prefetch.batches")
+        if ready:
+            trace.count("train.prefetch.ready")
+        return item

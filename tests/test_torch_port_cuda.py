@@ -928,3 +928,36 @@ def test_trace_records_kernels(dev, tmp_path):
     rows = summarize(str(tmp_path), top=3)
     assert rows[0]["device"] == "cuda" and rows[0]["device_busy_us"] > 0
     assert rows[1]["occurrences"] >= 4
+
+
+def test_train_frames_page_locked_and_copied_whole(dev):
+    """The train loop hands each step page-locked frames from its
+    stacking thread. Every step here queues 20 ms of sleep before its
+    asynchronous copy of them, so the copies lag the host by many steps
+    while page-locked blocks are freed and handed out again; each device
+    copy must still equal the frames the step was handed."""
+    import types
+
+    from eov_tpu_torch import train as tr
+    from eov_tpu_torch.data.datasets import SyntheticVideoDataset
+
+    ds = SyntheticVideoDataset(n_classes=2, clips_per_class=8, height=32,
+                               width=40, seed=3)
+    cfg = tr.TrainConfig(num_classes=2, arch="resnet18", num_segments=3,
+                         batch_clips=2, seed=1)
+    state = types.SimpleNamespace(model=torch.nn.Linear(2, 2).to(dev))
+    host, copies = [], []
+
+    def step(state, frames, labels, key):
+        assert frames.is_pinned()
+        host.append(frames.clone())
+        torch.cuda._sleep(35_000_000)  # ~20 ms at the H100's clock
+        copies.append(frames.to(dev, non_blocking=True))
+        return state, {}
+
+    _, out = tr.train_epoch(state, step, cfg, ds, epoch=0)
+    torch.cuda.synchronize(dev)
+    assert out["steps"] == len(copies) == 8
+    bad = [s for s, (h, d) in enumerate(zip(host, copies))
+           if not torch.equal(d.cpu(), h)]
+    assert not bad, f"steps whose copy read a later batch: {bad}"
