@@ -24,7 +24,14 @@ Phases (any failure exits non-zero):
    for bit at 256 images in bf16 and 16 in f32, its tile plan and the
    memory floor of one launch per block printed beside its bound; kernel
    3 also at the embodied eval's support (M=6, masked), bit-equal run to
-   run;
+   run; the temporal shift (``tsm_nl_resnet50``) bit for bit, forward and
+   adjoint, at the 16 block inputs of a ``tsm_nl_r50_finetune`` step (128
+   frames, bf16; 16 frames in f32) and through its autograd, its launches
+   counted and a step's 32 launches timed beside the plain version,
+   ``clone`` and the byte bound; then ``nonlocal_attention`` at res3 and
+   res4 (16 clips) timed beside SDPA and the products with bf16 logits,
+   each output's distance from float64 printed (``--only tsm_ops`` runs
+   the build and these two alone);
 4. run the extraction main path: a synthetic dataset stored at 256x320 (so
    the crop kernel runs), full-width ResNet-50 with seeded random weights,
    K=8, 32 clips per batch, bf16 -> ``extract_features`` into a store ->
@@ -111,8 +118,9 @@ Phases (any failure exits non-zero):
    always-on cost of a span, a device span, a count and a step is printed
    in microseconds, on and off the profiler, and so is the host time a
    step of epochs of empty steps with ``r50_finetune``'s spans and counts,
-   beside the 50 us budget. ``--only trace_path`` runs this phase alone,
-   without the build;
+   beside the 50 us budget, and with ``tsm_nl_resnet50``'s timed
+   non-local spans and shift launch counts added. ``--only trace_path``
+   runs this phase alone, without the build;
 13. print the ``kernels`` JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1453,6 +1461,158 @@ def check_train_stack(dev):
                             "(its forward included, as kernel 9 recomputes)",
                timing=fwd["timing"])
     return [fwd, bwd]
+
+
+# ------------------------------------------------- tsm_nl_resnet50's ops
+
+# ResNet-50's 16 bottleneck inputs at a 224² crop (side, channels): the
+# shapes the temporal shift runs at in ``tsm_nl_r50_finetune``'s step.
+SHIFT_INPUTS = (((56, 64),) + ((56, 256),) * 3 + ((28, 512),) * 4
+                + ((14, 1024),) * 6 + ((7, 2048),) * 2)
+
+
+def check_shift(dev):
+    """The temporal shift kernel at a step of ``tsm_nl_r50_finetune``: the
+    16 block inputs of 128 frames (T 8, fold C/8) in bf16, forward and
+    adjoint, bit for bit against ``shift_plain``, and at 16 frames in f32;
+    ``temporal_shift``'s autograd on the card (its gradient the adjoint);
+    the launches counted by ``launch.temporal_shift``. Times: the step's
+    32 launches (CUDA graph), the plain version and ``clone`` of the same
+    tensors, beside the bytes they must read and write."""
+    from eov_tpu_torch.ops import temporal_shift as ts
+    from eov_tpu_torch.utils import trace
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n, t = 128, 8
+    xs = [torch.randn(n, c, s, s, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+          for s, c in SHIFT_INPUTS]
+    folds = [x.shape[1] // 8 for x in xs]
+
+    def bits(a):
+        return a.view(torch.int16 if a.dtype == torch.bfloat16
+                      else torch.int32)
+
+    l0 = trace.counter("launch.temporal_shift")
+    for x, f in zip(xs, folds):
+        for rev in (False, True):
+            for v in (x, x[:16].float()):
+                if not torch.equal(bits(ts.shift_cuda(v, t, f, rev)),
+                                   bits(ts.shift_plain(v, t, f, rev))):
+                    fail(f"temporal shift ({v.dtype}, {tuple(v.shape)}, "
+                         f"reverse={rev}) differs from its plain version")
+    x = xs[1].detach().requires_grad_(True)
+    dy = torch.randn_like(x)
+    y = ts.temporal_shift(x, t, folds[1])
+    y.backward(dy)
+    if not (torch.equal(bits(y), bits(ts.shift_plain(x, t, folds[1])))
+            and torch.equal(bits(x.grad),
+                            bits(ts.shift_plain(dy, t, folds[1], True)))):
+        fail("temporal_shift's autograd on the card is not the shift and "
+             "its adjoint")
+    launches = int(trace.counter("launch.temporal_shift") - l0)
+    if launches != 4 * len(xs) + 2:
+        fail(f"temporal shift launched {launches} times, not "
+             f"{4 * len(xs) + 2}")
+    del x, dy, y
+
+    def each(fn, rev=False):
+        return lambda: [fn(v, t, f, rev) for v, f in zip(xs, folds)]
+
+    fwd = cuda_ms(each(ts.shift_cuda), inner=1, graph=True)
+    adj = cuda_ms(each(ts.shift_cuda, True), inner=1, graph=True)
+    plain = (cuda_ms(each(ts.shift_plain), inner=1, graph=True)
+             + cuda_ms(each(ts.shift_plain, True), inner=1, graph=True))
+    copy = 2 * cuda_ms(lambda: [v.clone() for v in xs], inner=1, graph=True)
+    moved = 2 * 2 * sum(v.numel() * v.element_size() for v in xs)
+    b, by = bound(moved, 0, torch.bfloat16)
+    return {
+        "name": "temporal_shift", "route": "cuda",
+        "source": "eov_tpu_torch/csrc/temporal_shift.cu",
+        "replaces": "none: the JAX package has no temporal model",
+        "launches": launches, "max_abs_err": 0.0,
+        "tolerance": "torch.equal of the bits with shift_plain, forward and "
+                     "adjoint, bf16 (128 frames) and f32 (16 frames); "
+                     "autograd's gradient the adjoint",
+        "ms": fwd + adj, "forward_ms": fwd, "adjoint_ms": adj,
+        "plain_ms": plain, "bound_ms": b, "bound_by": by,
+        "roofline": b / (fwd + adj),
+        "library_ms": copy,
+        "library_call": "x.clone() of each block input, twice",
+        "timing": "a step's 32 launches: the 16 block inputs of "
+                  "tsm_nl_r50_finetune, forward and adjoint, CUDA graph",
+        "shape": f"bf16 [{n}, C, H, W], T {t}, channels_last: "
+                 + ", ".join(f"{s}x{s}x{c}" for s, c in SHIFT_INPUTS),
+    }
+
+
+def nonlocal_times(dev) -> dict:
+    """``nonlocal_attention`` at the cell's two widths (16 clips, T 8,
+    bf16, logits of unit variance; res3: Ci 256 at 28², keys pooled to
+    14²; res4: Ci 512 at 14², keys 7²), forward and forward + backward ms,
+    beside SDPA and the products with bf16 logits, and each output's
+    relative L2 distance from the float64 computation on the same inputs."""
+    import torch.nn.functional as F
+
+    from eov_tpu_torch.models.resnet import nonlocal_attention
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n, t = 16, 8
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                              v[:, None], scale=1.0)[:, 0]
+
+    def bf16_logits(q, k, v):
+        a = torch.softmax(torch.bmm(q, k.transpose(1, 2)), dim=-1,
+                          dtype=torch.float32)
+        return torch.bmm(a.to(v.dtype), v)
+
+    def f64(q, k, v):
+        a = torch.softmax(torch.bmm(q.double(), k.double().transpose(1, 2)),
+                          dim=-1)
+        return torch.bmm(a, v.double())
+
+    out = {}
+    for name, side, ci in (("res3", 28, 256), ("res4", 14, 512)):
+        def make(s, scale):
+            return (torch.randn(n * t, ci, s, s, generator=gen, device=dev)
+                    * scale).to(torch.bfloat16).contiguous(
+                        memory_format=torch.channels_last)
+        theta, phi = make(side, ci ** -0.25), make(side // 2, ci ** -0.25)
+        g = make(side // 2, 1.0)
+
+        def rows(x):
+            return x.permute(0, 2, 3, 1).reshape(n, -1, ci)
+
+        want = f64(rows(theta), rows(phi), rows(g))
+        row = {}
+        for kind, fn in (("port", None), ("sdpa", sdpa),
+                         ("products_bf16_logits", bf16_logits)):
+            def fwd(a=theta, b=phi, c=g, fn=fn):
+                if fn is None:
+                    return rows(nonlocal_attention(a, b, c, t))
+                return fn(rows(a), rows(b), rows(c))
+            got = fwd()
+            ins = [v.detach().requires_grad_(True) for v in (theta, phi, g)]
+            dy = torch.randn_like(got)
+
+            def both(fwd=fwd, ins=ins, dy=dy):
+                for v in ins:
+                    v.grad = None
+                fwd(*ins).backward(dy)
+            row[kind] = {
+                "forward_ms": cuda_ms(fwd), "fwd_bwd_ms": cuda_ms(both),
+                "rel_l2_vs_f64": float((got.double() - want).norm()
+                                       / want.norm())}
+        out[name] = row
+    return out
+
+
+def tsm_ops(dev, gpu) -> dict:
+    """``check_shift``'s row and ``nonlocal_times`` (``--only tsm_ops``)."""
+    return {"shift": dict(check_shift(dev), gpu=gpu),
+            "nonlocal_attention": nonlocal_times(dev)}
 
 
 # ------------------------------------------------------------- main path
@@ -3341,7 +3501,7 @@ def _span_cost_us(dev, n: int = 20000) -> dict:
 
 
 def _step_cost_us(dev, epochs: int = 20, steps: int = 16,
-                  repeats: int = 15) -> dict:
+                  repeats: int = 15, tsm: bool = False) -> dict:
     """Host microseconds a train step spends in ``utils/trace.py``: epochs
     of empty steps with ``r50_finetune``'s spans and counts (32 clip reads
     and their two counts each, the batch, the step, five device spans, the
@@ -3349,8 +3509,16 @@ def _step_cost_us(dev, epochs: int = 20, steps: int = 16,
     crop draws, the dropout seed; the images, and the six launches each of
     kernels 8 and 9), the roots' events read and reports folded; the least
     of ``repeats`` blocks (the shared host's other work only adds to a
-    block); and one such epoch's report."""
+    block); and one such epoch's report. ``tsm`` adds what
+    ``tsm_nl_resnet50`` adds a step: five timed ``model.nonlocal`` spans in
+    the forward and five in the backward (two events each, read at the
+    root's end), and the shift's 32 launch counts."""
     from eov_tpu_torch.utils import trace
+
+    def nonlocal_spans():
+        for _ in range(5):
+            with trace.span("model.nonlocal", device=True, timed=True):
+                pass
 
     def epoch(e):
         with trace.root("smoke.epoch", e, dev) as r:
@@ -3372,9 +3540,15 @@ def _step_cost_us(dev, epochs: int = 20, steps: int = 16,
                     with trace.span("train.forward", device=True):
                         for _ in range(6):
                             trace.count("launch.train_stack_forward")
+                        if tsm:
+                            for _ in range(32):
+                                trace.count("launch.temporal_shift")
+                            nonlocal_spans()
                     with trace.span("train.backward", device=True):
                         for _ in range(6):
                             trace.count("launch.train_stack_backward")
+                        if tsm:
+                            nonlocal_spans()
                     with trace.span("train.optimizer", device=True):
                         pass
                 trace.step()
@@ -3415,9 +3589,15 @@ def trace_path(dev, gpu) -> dict:
     if not r.report["profiled"]:
         fail("a root under torch.profiler does not report it profiled")
     step = _step_cost_us(dev)
+    tsm = _step_cost_us(dev, tsm=True)
+    if tsm["report"]["spans"]["model.nonlocal"]["n"] != 16 * 10 or not (
+            tsm["report"]["device_span_s"]["model.nonlocal"] >= 0):
+        fail(f"the timed non-local spans: {tsm['report']}")
     out = {"gpu": gpu, "planted_gaps": gaps, "span_cost_us_off": off,
            "span_cost_us_profiled": on,
            "cost_us_per_step": step["us_per_step"],
+           "cost_us_per_step_tsm": tsm["us_per_step"],
+           "tsm_adds_us_per_step": tsm["us_per_step"] - step["us_per_step"],
            "over_budget_us": max(step["us_per_step"] - 50.0, 0.0),
            "step_report": step["report"]}
     # four host-only stretches a step (the loop, and in the augment the key
@@ -3450,7 +3630,8 @@ def main() -> int:
                           "total_s": now - t_start}), flush=True)
         t0 = now
 
-    only = {"multi_gpu_path": multi_gpu_path, "trace_path": trace_path}
+    only = {"multi_gpu_path": multi_gpu_path, "trace_path": trace_path,
+            "tsm_ops": tsm_ops}
     name = (sys.argv[2:3] or [""])[0] if sys.argv[1:2] == ["--only"] else None
     if name not in (None, *only):
         fail(f"--only takes one of {sorted(only)}, not {name!r}")
@@ -3469,7 +3650,7 @@ def main() -> int:
     rows = []
     for check in (check_crop, check_stack, check_matcher, check_int8_stack,
                   check_train_stack, check_pool, check_basic_stack,
-                  check_pool_stack):
+                  check_pool_stack, check_shift):
         found = check(dev)
         for row in found if isinstance(found, list) else [found]:
             row["gpu"] = gpu
@@ -3477,6 +3658,9 @@ def main() -> int:
                               **row}), flush=True)
             rows.append(row)
         phase(check.__name__)
+    print(json.dumps({"nonlocal_attention": nonlocal_times(dev)}),
+          flush=True)
+    phase("nonlocal_times")
 
     summary, acc_line, batch = main_path(dev, gpu)
     print(json.dumps({"main_path": summary}), flush=True)
@@ -3519,7 +3703,7 @@ def main() -> int:
                 "bottleneck_int8": int8["launches"]["bottleneck_int8"],
                 **{k: basic["launches"][k] for k in new}}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"], row.get("launches"))
     print(json.dumps({"kernels": [
         {k: row[k] for k in keys + ("note",) if k in row} for row in rows]}),
         flush=True)

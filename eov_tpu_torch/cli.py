@@ -350,7 +350,10 @@ def cmd_extract(args) -> int:
                                  device=device, act_max=act_max, mesh=mesh)
     finally:
         metrics.close()
-    print(json.dumps(stats))
+    # One write a line: every rank prints its stats to the same stdout, and
+    # an unbuffered print writes the text and its newline apart.
+    sys.stdout.write(json.dumps(stats) + "\n")
+    sys.stdout.flush()
     return 0
 
 
@@ -962,7 +965,10 @@ def _add_clips(p: argparse.ArgumentParser) -> None:
                    help="train-run dir, or a torchvision .pth/.pt/.npz "
                         "state_dict")
     p.add_argument("--arch", default=None,
-                   help="backbone arch (resnet18/34/50/101/152)")
+                   help="backbone arch (resnet18/34/50/101/152, "
+                        "tsm_nl_resnet50: TSM's shift and five non-local "
+                        "blocks over clips of --num-segments frames; it "
+                        "refuses --fused-stages, --quant and --pallas-pool)")
     p.add_argument("--num-segments", type=int, default=None)
     p.add_argument("--batch", type=int, default=None,
                    help="clips per device batch (default: the preset's)")
@@ -977,7 +983,10 @@ def _add_train_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--params", default=None,
                    help="train-run dir, or a torchvision .pth/.pt/.npz")
     p.add_argument("--arch", default=None,
-                   help="backbone arch (resnet18/34/50/101/152)")
+                   help="backbone arch (resnet18/34/50/101/152, "
+                        "tsm_nl_resnet50: TSM's shift and five non-local "
+                        "blocks over clips of --num-segments frames, trained "
+                        "on cuDNN without kernels 8 and 9)")
     p.add_argument("--batch", type=int, default=None,
                    help="clips per step (default 8)")
     p.add_argument("--num-segments", type=int, default=None)

@@ -61,6 +61,12 @@ another path. So on resnet18/34, whose ``"auto"`` fused stages are (),
 the reference's TPU grid knob (images per kernel grid step), whose results
 are bit-identical for every group; the port accepts it and ignores it.
 
+A temporal arch (``tsm_nl_resnet50``) builds its program for T =
+``num_segments`` frames a clip and runs every block unfused (the shift and
+the non-local blocks, ``models.folded_infer``); it refuses fused stages
+other than ``"auto"`` (which resolves to ()), int8, ``pallas_pool``, clips
+of another K, and segments split over frame ranks.
+
 ``extract_features(mesh=)`` is the multi-GPU loop (one process per GPU,
 ``parallel/``): each data row extracts its shard of the records into its
 own namespace of the shared store, its frame ranks splitting the K
@@ -83,7 +89,7 @@ from eov_tpu_torch.data.datasets import (VideoDataset, VideoRecord,
                                          get_batch_accepts_out)
 from eov_tpu_torch.data.segments import center_indices_np
 from eov_tpu_torch.data.store import FeatureStore
-from eov_tpu_torch.models import get_arch
+from eov_tpu_torch.models import get_arch, get_temporal
 from eov_tpu_torch.models.folded_infer import (PALLAS_POOL, FoldedResNet,
                                                resolve_fused_stages,
                                                use_full_f32)
@@ -155,6 +161,13 @@ class ExtractConfig:
             raise ValueError(
                 "quant='int8' quantizes the FOLDED inference path: it needs "
                 "fold_bn=True")
+        if get_temporal(self.arch) is not None:
+            for flag, off in (("quant", None), ("pallas_pool", False)):
+                if getattr(self, flag) != off:
+                    raise ValueError(
+                        f"{flag}={getattr(self, flag)!r} is refused on "
+                        f"{self.arch}: its shift and non-local blocks run "
+                        "in the bf16/f32 forward, with no fused stage")
         self._check_stem_options()
 
     def _check_stem_options(self) -> None:
@@ -308,18 +321,26 @@ def make_segment_fn(weights, cfg: ExtractConfig,
                           fused_stages=stages)
     elif not cfg.fold_bn:
         net = UnfoldedResNet(weights, arch=cfg.arch, dtype=dtype,
-                             stem_s2d=cfg.stem_s2d)
+                             stem_s2d=cfg.stem_s2d,
+                             num_segments=cfg.num_segments)
     else:
         if cfg.stem_s2d:
             weights = space_to_depth_stem(weights)
         net = FoldedResNet(fold_batchnorm(weights, cfg.arch), arch=cfg.arch,
                            dtype=dtype, fused_stages=cfg.fused_stages,
                            pallas_pool=cfg.pallas_pool,
-                           stem_s2d=cfg.stem_s2d)
+                           stem_s2d=cfg.stem_s2d,
+                           num_segments=cfg.num_segments)
     net = net.to(dev).eval()
+    temporal = get_temporal(cfg.arch) is not None
 
     @torch.inference_mode()
     def segment_fn(frames_u8: torch.Tensor) -> torch.Tensor:
+        if temporal and frames_u8.shape[1] != cfg.num_segments:
+            raise ValueError(
+                f"{cfg.arch} was built for T={cfg.num_segments} segments a "
+                f"clip; these clips have K={frames_u8.shape[1]} (segments "
+                "split over frame ranks are refused too)")
         frames_u8 = frames_u8.to(dev, non_blocking=True)
         h, w = frames_u8.shape[-3], frames_u8.shape[-2]
         if cfg.pallas_crop and min(h, w) == cfg.scale_size:  # eval scale
@@ -342,9 +363,10 @@ class UnfoldedResNet(torch.nn.Module):
     the 7x7 kernel under ``stem_s2d``)."""
 
     def __init__(self, weights, *, arch: str = "resnet50",
-                 dtype=torch.bfloat16, stem_s2d: bool = False):
+                 dtype=torch.bfloat16, stem_s2d: bool = False,
+                 num_segments: int | None = None):
         super().__init__()
-        self.model = ResNet(arch, dtype=dtype)
+        self.model = ResNet(arch, dtype=dtype, num_segments=num_segments)
         self.model.load_state_dict(check_state_dict(weights, arch,
                                                     strict=False))
         self.model.to(memory_format=torch.channels_last).eval()

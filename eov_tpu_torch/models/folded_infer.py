@@ -22,6 +22,13 @@ Frames ``[..., H, W, 3]`` go to features ``[..., D]`` (float32):
   (2, 1) over the space-to-depth frames ``[..., H/2, W/2, 12]``; the
   weights must come through ``models.resnet.space_to_depth_stem``.
 
+A temporal arch (``tsm_nl_resnet50``) runs every block unfused, shifting
+conv1's input (``ops.temporal_shift``; ``num_segments`` = T frames a clip)
+and adding the non-local blocks (``models.resnet.nonlocal_attention``, a
+timed ``model.nonlocal`` span each) with their BN folded into W; its fused
+stages resolve to () and any other request is refused (kernel 2 computes no
+shift).
+
 Rounding follows the reference: each conv's output rounds to the compute
 dtype, then bias (in the compute dtype) and ReLU; residual adds in the
 compute dtype on unfused blocks; the fused stacks follow their own chains
@@ -41,14 +48,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eov_tpu_torch.models import get_arch
-from eov_tpu_torch.models.resnet import block_names, s2d_frames
+from eov_tpu_torch.models import get_arch, get_temporal
+from eov_tpu_torch.models.resnet import (block_names, nonlocal_attention,
+                                         s2d_frames)
+from eov_tpu_torch.ops.temporal_shift import temporal_shift
 from eov_tpu_torch.ops.bottleneck import (fused_basic_stack,
                                           fused_bottleneck_stack,
                                           fused_pool_bottleneck_stack,
                                           pack_basic_params,
                                           pack_bottleneck_params)
 from eov_tpu_torch.ops.pool import maxpool_3x3_s2_nonneg
+from eov_tpu_torch.utils import trace
 
 __all__ = ["FoldedResNet", "folded_feature_apply", "resolve_fused_stages",
            "use_full_f32"]
@@ -68,8 +78,14 @@ def resolve_fused_stages(fused_stages, *, arch: str,
     """"auto" -> (1,) for bottleneck archs on every device (the op picks
     kernel or plain version by the tensor's device), () for basic archs, as
     the reference resolves it. Explicit tuples are honored on both
-    families. Without the BN fold (``folded=False``) nothing fuses: ()."""
+    families. Without the BN fold (``folded=False``) nothing fuses: ().
+    A temporal arch fuses nothing, and refuses a request for a stage."""
     stage_sizes, bottleneck = get_arch(arch)
+    if get_temporal(arch) is not None:
+        if fused_stages not in ("auto", None) and tuple(fused_stages):
+            raise ValueError(f"fused_stages={fused_stages!r} is refused on "
+                             f"{arch}: kernel 2 computes no temporal shift")
+        return ()
     if not folded:
         return ()
     if fused_stages == "auto":
@@ -91,11 +107,17 @@ class FoldedResNet(nn.Module):
 
     def __init__(self, folded: Mapping, *, arch: str = "resnet50",
                  dtype=torch.bfloat16, fused_stages=(1,),
-                 pallas_pool=False, stem_s2d: bool = False):
+                 pallas_pool=False, stem_s2d: bool = False,
+                 num_segments: int | None = None):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         self.stage_sizes, self.bottleneck = get_arch(arch)
+        self.temporal = get_temporal(arch)
+        if self.temporal is not None and not num_segments:
+            raise ValueError(f"{arch} shifts along a clip's frames: give "
+                             "num_segments (T)")
+        self.num_segments = num_segments
         self.fused_stages = resolve_fused_stages(fused_stages, arch=arch)
         if pallas_pool not in PALLAS_POOL:
             raise ValueError(f"pallas_pool={pallas_pool!r}: expected one of "
@@ -135,7 +157,11 @@ class FoldedResNet(nn.Module):
                 self._packs.setdefault(i, []).append(names)
             else:
                 for c, conv in blk.items():
-                    self._add_conv(f"{t}.{c}", conv)
+                    if c == "nl":
+                        for k, v in conv.items():
+                            self._add_conv(f"{t}.nl.{k}", v)
+                    else:
+                        self._add_conv(f"{t}.{c}", conv)
 
     def _add_conv(self, name: str, conv: Mapping) -> None:
         key = name.replace(".", "_")
@@ -152,7 +178,11 @@ class FoldedResNet(nn.Module):
 
     def _block(self, t: str, x, stride: int):
         if self.bottleneck:
-            y = torch.relu(self._conv(f"{t}.conv1", x))
+            u = x
+            if self.temporal is not None:
+                u = temporal_shift(x, self.num_segments,
+                                   x.shape[1] // self.temporal.shift_div)
+            y = torch.relu(self._conv(f"{t}.conv1", u))
             y = torch.relu(self._conv(f"{t}.conv2", y, stride, 1))
             y = self._conv(f"{t}.conv3", y)
         else:
@@ -160,7 +190,21 @@ class FoldedResNet(nn.Module):
             y = self._conv(f"{t}.conv2", y, 1, 1)
         r = (self._conv(f"{t}.downsample", x, stride)
              if f"{t}.downsample" in self._convs else x)
-        return torch.relu(y + r)
+        out = torch.relu(y + r)
+        if f"{t}.nl.W" in self._convs:
+            out = self._nonlocal(t, out)
+        return out
+
+    def _nonlocal(self, t: str, z):
+        """The folded non-local block: W(attention) + its folded BN's
+        shift, + z, in the compute dtype."""
+        with trace.span("model.nonlocal", device=True, timed=True):
+            y = nonlocal_attention(
+                self._conv(f"{t}.nl.theta", z),
+                F.max_pool2d(self._conv(f"{t}.nl.phi", z), 2, 2),
+                F.max_pool2d(self._conv(f"{t}.nl.g", z), 2, 2),
+                self.num_segments)
+            return self._conv(f"{t}.nl.W", y) + z
 
     def _stack(self, i: int, x):
         blocks = [{k: getattr(self, v) for k, v in names.items()}

@@ -47,6 +47,30 @@ loads into it unchanged. Its numerics are the flax model's:
 * ``remat`` recomputes each residual block in the backward
   (``torch.utils.checkpoint``); a running-statistics update is applied once,
   on the first of the two forwards.
+
+A temporal arch (``models.get_temporal``: ``tsm_nl_resnet50``) adds two
+things to ResNet-50, with ``num_segments`` = T frames a clip, a clip's
+frames consecutive rows of the batch:
+
+* TSM's residual shift (``ops.temporal_shift``): every ``Bottleneck``
+  shifts 1/8 of its input's channels one frame back and 1/8 one frame
+  forward before ``conv1``, in the compute dtype (a copy: exact); the
+  shortcut reads the input unshifted;
+* ``NonLocal`` after the named blocks (embedded Gaussian, Wang et al. 2018,
+  §3.2-3.3): 1x1 convs with bias θ, φ, g to C/2 channels, φ and g
+  max-pooled 2x2 over H and W (none over T), softmax over the clip's
+  pooled positions of θφᵀ with no 1/√C scale, a 1x1 conv with bias W back
+  to C channels, BatchNorm, plus its input. Its leaves are
+  ``layer{i}.{j}.nl.{theta,phi,g,W}.{weight,bias}`` and
+  ``layer{i}.{j}.nl.bn.*``; its BN trains or freezes with the others. The
+  attention is ``nonlocal_attention`` (SDPA at Ci 256, products and a
+  softmax at Ci 512, whichever is faster on the card). Each block's
+  forward, and its backward through two gradient hooks, is a timed device
+  span ``model.nonlocal``.
+
+``random_state_dict`` gives a non-local block the published init (its BN's
+gamma 0: the block starts as the identity); ``fold_batchnorm`` folds its BN
+into W, conv bias included.
 """
 
 from __future__ import annotations
@@ -60,15 +84,19 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from eov_tpu_torch.models import get_arch
+from eov_tpu_torch.models import get_arch, get_temporal
+from eov_tpu_torch.ops.temporal_shift import temporal_shift
+from eov_tpu_torch.utils import trace
 
 __all__ = ["from_jax_variables", "load_state_dict", "check_state_dict",
            "random_state_dict", "space_to_depth_stem", "s2d_kernel",
            "s2d_frames", "fold_batchnorm",
-           "block_names",
-           "Conv", "BatchNorm", "Bottleneck", "BasicBlock", "ResNet"]
+           "block_names", "nonlocal_attention",
+           "Conv", "BiasConv", "BatchNorm", "Bottleneck", "BasicBlock",
+           "NonLocal", "ResNet"]
 
 _BN_STATS = ("weight", "bias", "running_mean", "running_var")
+_NL_CONVS = ("theta", "phi", "g", "W")
 
 
 def block_names(arch: str):
@@ -130,6 +158,11 @@ def _expected_keys(arch: str, sd: Mapping) -> list[str]:
         if f"{t}.downsample.0.weight" in sd:
             keys.append(f"{t}.downsample.0.weight")
             keys += [f"{t}.downsample.1.{k}" for k in _BN_STATS]
+    temporal = get_temporal(arch)
+    for t in temporal.nonlocal_blocks if temporal else ():
+        keys += [f"{t}.nl.{c}.{k}" for c in _NL_CONVS
+                 for k in ("weight", "bias")]
+        keys += [f"{t}.nl.bn.{k}" for k in _BN_STATS]
     return keys
 
 
@@ -208,6 +241,14 @@ def random_state_dict(arch: str = "resnet50", seed: int = 0,
             conv(f"{t}.downsample.0", cout, cin, 1)
             bn(f"{t}.downsample.1", cout)
         cin = cout
+    temporal = get_temporal(arch)
+    for t in temporal.nonlocal_blocks if temporal else ():
+        c = sd[f"{t}.conv3.weight"].shape[0]
+        for name, (o, i) in zip(_NL_CONVS, 3 * [(c // 2, c)] + [(c, c // 2)]):
+            conv(f"{t}.nl.{name}", o, i, 1)
+            sd[f"{t}.nl.{name}.bias"] = torch.zeros(o)
+        bn(f"{t}.nl.bn", c)
+        sd[f"{t}.nl.bn.weight"] = torch.zeros(c)  # the published init
     if num_classes is not None:
         sd["fc.weight"] = torch.randn(num_classes, cin,
                                       generator=g) / math.sqrt(cin)
@@ -264,16 +305,19 @@ def _fold(sd, conv: str, bn: str, eps: float) -> dict:
     # vectorized f32 sqrt does not always give.
     root = torch.sqrt((sd[f"{bn}.running_var"] + eps).double()).float()
     scale = sd[f"{bn}.weight"] / root
-    return {
-        "weight": sd[f"{conv}.weight"] * scale[:, None, None, None],
-        "bias": sd[f"{bn}.bias"] - sd[f"{bn}.running_mean"] * scale,
-    }
+    bias = sd[f"{bn}.bias"] - sd[f"{bn}.running_mean"] * scale
+    if f"{conv}.bias" in sd:  # a non-local block's W
+        bias = bias + sd[f"{conv}.bias"] * scale
+    return {"weight": sd[f"{conv}.weight"] * scale[:, None, None, None],
+            "bias": bias}
 
 
 def fold_batchnorm(sd: Mapping, arch: str = "resnet50",
                    eps: float = 1e-5) -> dict:
     """state_dict -> folded {"conv1": {weight, bias}, "layer1.0": {"conv1":
-    {weight, bias}, ..., ["downsample": {weight, bias}]}, ...} in float32."""
+    {weight, bias}, ..., ["downsample": {weight, bias}], ["nl": {"theta",
+    "phi", "g": the convs as they are, "W": folded with its BN}]}, ...} in
+    float32."""
     sd = check_state_dict(sd, arch, strict=False)
     _, bottleneck = get_arch(arch)
     n_convs = 3 if bottleneck else 2
@@ -284,6 +328,11 @@ def fold_batchnorm(sd: Mapping, arch: str = "resnet50",
         if f"{t}.downsample.0.weight" in sd:
             blk["downsample"] = _fold(sd, f"{t}.downsample.0",
                                       f"{t}.downsample.1", eps)
+        if f"{t}.nl.bn.weight" in sd:
+            nl = {c: {k: sd[f"{t}.nl.{c}.{k}"] for k in ("weight", "bias")}
+                  for c in _NL_CONVS[:3]}
+            nl["W"] = _fold(sd, f"{t}.nl.W", f"{t}.nl.bn", eps)
+            blk["nl"] = nl
         out[t] = blk
     return out
 
@@ -307,6 +356,19 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
                         stride=self.stride, padding=self.padding)
+
+
+class BiasConv(Conv):
+    """A 1x1 conv with a bias (a non-local block's): kernel and bias cast to
+    ``dtype``, the output rounded to it."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__(cin, cout, 1, dtype=dtype)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
 
 
 class BatchNorm(nn.Module):
@@ -347,11 +409,86 @@ class BatchNorm(nn.Module):
                 + self.bias[:, None, None])
 
 
+def nonlocal_attention(theta: torch.Tensor, phi: torch.Tensor,
+                       g: torch.Tensor, segments: int) -> torch.Tensor:
+    """The embedded-Gaussian attention of a non-local block over each clip:
+    ``theta`` [N*T, Ci, H, W], ``phi`` and ``g`` pooled [N*T, Ci, h, w] ->
+    softmax(θφᵀ) g, [N*T, Ci, H, W] (channels_last), queries and keys
+    every position of the clip's T frames, no 1/√Ci scale.
+
+    Up to Ci 256 (res3) it is ``F.scaled_dot_product_attention``, whose
+    fused kernels take head sizes to 256 and keep θφᵀ in f32; above (res4,
+    Ci 512) only its memory-efficient kernel is left, and a product of θ
+    and φ in f32 (as SDPA's logits), a softmax in f32 and a product in the
+    compute dtype take a fraction of its time forward and backward on an
+    H100 (PERF.md)."""
+    nt, ci, h, w = theta.shape
+    n = nt // segments
+
+    def rows(x):  # [N*T, Ci, h, w] -> [N, T*h*w, Ci]
+        return x.permute(0, 2, 3, 1).reshape(n, -1, ci)
+
+    q, k, v = rows(theta), rows(phi), rows(g)
+    if ci <= 256:
+        y = F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                           v[:, None], scale=1.0)[:, 0]
+    else:
+        a = torch.softmax(torch.bmm(q.float(), k.float().transpose(1, 2)),
+                          dim=-1)
+        y = torch.bmm(a.to(v.dtype), v)
+    return y.reshape(nt, h, w, ci).permute(0, 3, 1, 2)
+
+
+class _BackwardSpan:
+    """A timed device span ``model.nonlocal`` around a block's backward:
+    opened when the gradient of its output arrives, closed when its input's
+    gradient is complete (autograd's thread)."""
+
+    def __init__(self, z: torch.Tensor, out: torch.Tensor):
+        self.span = trace.span("model.nonlocal", device=True, timed=True)
+        out.register_hook(self.open)
+        z.register_hook(self.close)
+
+    def open(self, grad):
+        self.span.__enter__()
+
+    def close(self, grad):
+        self.span.__exit__(None, None, None)
+
+
+class NonLocal(nn.Module):
+    """Embedded-Gaussian non-local block (module doc) on a block's output
+    z [N*T, C, H, W] f32: BN(W(attention)) + z, f32."""
+
+    def __init__(self, c: int, segments: int, dtype, frozen: bool):
+        super().__init__()
+        self.theta = BiasConv(c, c // 2, dtype)
+        self.phi = BiasConv(c, c // 2, dtype)
+        self.g = BiasConv(c, c // 2, dtype)
+        self.W = BiasConv(c // 2, c, dtype)
+        self.bn = BatchNorm(c, frozen)
+        self.segments = segments
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        with trace.span("model.nonlocal", device=True, timed=True):
+            y = nonlocal_attention(self.theta(z),
+                                   F.max_pool2d(self.phi(z), 2, 2),
+                                   F.max_pool2d(self.g(z), 2, 2),
+                                   self.segments)
+            out = self.bn(self.W(y)) + z.float()
+        if torch.is_grad_enabled() and out.requires_grad and z.requires_grad:
+            _BackwardSpan(z, out)
+        return out
+
+
 class Bottleneck(nn.Module):
-    """ResNet v1.5 bottleneck: 1x1 -> 3x3 (stride here) -> 1x1, + shortcut."""
+    """ResNet v1.5 bottleneck: 1x1 -> 3x3 (stride here) -> 1x1, + shortcut;
+    with ``segments`` and ``shift_div`` TSM's shift of conv1's input, with
+    ``nonlocal_block`` a ``NonLocal`` on the output (module doc)."""
 
     def __init__(self, cin: int, filters: int, stride: int, dtype,
-                 frozen: bool):
+                 frozen: bool, segments: int | None = None,
+                 shift_div: int | None = None, nonlocal_block: bool = False):
         super().__init__()
         cout = 4 * filters
         self.conv1 = Conv(cin, filters, 1, dtype=dtype)
@@ -364,13 +501,21 @@ class Bottleneck(nn.Module):
                                               dtype=dtype),
                                          BatchNorm(cout, frozen))
                            if cin != cout or stride != 1 else None)
+        self.segments, self.shift_div = segments, shift_div
+        self.nl = (NonLocal(cout, segments, dtype, frozen)
+                   if nonlocal_block else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
+        u = x
+        if self.shift_div is not None:
+            u = temporal_shift(x.to(self.conv1.dtype), self.segments,
+                               x.shape[1] // self.shift_div)
+        y = torch.relu(self.bn1(self.conv1(u)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         r = self.downsample(x) if self.downsample is not None else x.float()
-        return torch.relu(y + r)
+        out = torch.relu(y + r)
+        return out if self.nl is None else self.nl(out)
 
 
 class BasicBlock(nn.Module):
@@ -422,21 +567,30 @@ class ResNet(nn.Module):
     def __init__(self, arch: str = "resnet50", num_classes: int | None = None,
                  width: int = 64, dtype=torch.float32,
                  partial_bn: bool = False, dropout: float = 0.0,
-                 remat: bool = False):
+                 remat: bool = False, num_segments: int | None = None):
         super().__init__()
         self.arch, self.dtype = arch, dtype
         self.stage_sizes, bottleneck = get_arch(arch)
         self.dropout, self.remat = dropout, remat
         block_cls = Bottleneck if bottleneck else BasicBlock
+        temporal = get_temporal(arch)
+        if temporal is not None and not num_segments:
+            raise ValueError(f"{arch} shifts along a clip's frames: give "
+                             "num_segments (T)")
         self.conv1 = Conv(3, width, 7, 2, 3, dtype=dtype)
         self.bn1 = BatchNorm(width)  # the stem BN trains under partial_bn
         cin = width
         for i, n_blocks in enumerate(self.stage_sizes):
             blocks = []
             for j in range(n_blocks):
+                kw = {} if temporal is None else {
+                    "segments": num_segments,
+                    "shift_div": temporal.shift_div,
+                    "nonlocal_block": (f"layer{i + 1}.{j}"
+                                       in temporal.nonlocal_blocks)}
                 blocks.append(block_cls(cin, width * 2 ** i,
                                         2 if i > 0 and j == 0 else 1, dtype,
-                                        frozen=partial_bn))
+                                        frozen=partial_bn, **kw))
                 cin = width * 2 ** i * (4 if bottleneck else 1)
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.fc = nn.Linear(cin, num_classes) if num_classes else None

@@ -35,7 +35,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("crop_normalize", "bottleneck_stack", "episode_scores",
-           "bottleneck_train", "bottleneck_int8", "maxpool_s2", "basic_stack")
+           "bottleneck_train", "bottleneck_int8", "maxpool_s2", "basic_stack",
+           "temporal_shift")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -23,6 +23,14 @@ resolves to on for a bottleneck arch under ``partial_bn`` on a CUDA device
 ``'on'`` forces the fused route (its plain versions on the CPU, for the
 tests); ``'off'`` disables it.
 
+A temporal arch (``tsm_nl_resnet50``: TSM's shift in every block, non-local
+blocks; ``models.resnet``) trains on the unfused route: kernels 8 and 9
+compute no shift, so ``fused_stage1``/``fused_stage2`` ``'auto'`` resolve
+to off for it and ``'on'`` is refused. The model's T is ``num_segments``:
+a batch of another K, or segments split over frame ranks, is refused. TSM's
+recipe trains every BN (``partial_bn=False``). The optimizer's policy holds
+for the non-local convs: their kernels decay, their biases do not.
+
 Randomness: the augmentation draws with the port's bit-exact threefry
 (``prng``), so the same step key crops the same clips as the reference.
 The dropout mask cannot be the reference's (flax derives it through its own
@@ -65,11 +73,11 @@ import torch
 import torch.nn.functional as F
 
 from eov_tpu_torch import prng
-from eov_tpu_torch.models import get_arch
+from eov_tpu_torch.models import get_arch, get_temporal
 from eov_tpu_torch.models.folded_infer import use_full_f32
 from eov_tpu_torch.models.fused_train import (FusedStack, ResNetSlice,
                                               ResNetStem, stage_block_specs)
-from eov_tpu_torch.models.resnet import (BatchNorm, Conv, ResNet,
+from eov_tpu_torch.models.resnet import (BatchNorm, BiasConv, Conv, ResNet,
                                          random_state_dict)
 from eov_tpu_torch.ops import preprocess
 from eov_tpu_torch.utils import debug, trace
@@ -139,10 +147,14 @@ def resolve_fused(cfg: TrainConfig,
     raises on impossible combinations, as the reference does."""
     _validate(cfg)
     bottleneck = get_arch(cfg.arch)[1]
+    temporal = get_temporal(cfg.arch) is not None
+    if temporal and "on" in (cfg.fused_stage1, cfg.fused_stage2):
+        raise ValueError(f"fused stages are refused on {cfg.arch}: kernels "
+                         "8 and 9 compute no temporal shift")
     on_gpu = torch.device(device).type == "cuda"
     fuse = cfg.fused_stage1 == "on" or (
         cfg.fused_stage1 == "auto" and cfg.partial_bn and bottleneck
-        and on_gpu)
+        and on_gpu and not temporal)
     if fuse and not cfg.partial_bn:
         raise ValueError("fused_stage1='on' requires partial_bn=True "
                          "(frozen stage BNs)")
@@ -171,14 +183,14 @@ def learning_rate(cfg: TrainConfig, step: int) -> float:
 
 
 def _param_groups(model: ResNet, cfg: TrainConfig) -> list[dict]:
-    """TSN policy: weight decay on conv and fc kernels only; biases and the
-    trainable BN affines undecayed; frozen BN affines (``requires_grad``
+    """TSN policy: weight decay on conv and fc kernels only; biases (the
+    fc's, the non-local convs') and the trainable BN affines undecayed; frozen BN affines (``requires_grad``
     off under partial_bn) in no group, so they never move."""
     decay, plain = [], []
     for mod in model.modules():
         if isinstance(mod, (Conv, torch.nn.Linear)):
             decay.append(mod.weight)
-        if isinstance(mod, torch.nn.Linear):
+        if isinstance(mod, (BiasConv, torch.nn.Linear)):
             plain.append(mod.bias)
         if isinstance(mod, BatchNorm) and mod.weight.requires_grad:
             plain += [mod.weight, mod.bias]
@@ -196,7 +208,7 @@ def create_train_state(cfg: TrainConfig, device: torch.device | str = "cuda",
     model = ResNet(cfg.arch, num_classes=cfg.num_classes,
                    dtype=_DTYPES[cfg.compute_dtype],
                    partial_bn=cfg.partial_bn, dropout=cfg.dropout,
-                   remat=cfg.remat)
+                   remat=cfg.remat, num_segments=cfg.num_segments)
     if weights is None:
         weights = random_state_dict(cfg.arch, seed=cfg.seed,
                                     num_classes=cfg.num_classes)
@@ -223,6 +235,10 @@ def make_train_step(cfg: TrainConfig, device: torch.device | str = "cuda",
     if sharded:
         from eov_tpu_torch.parallel import distributed as pdist
     fuse, fuse2 = resolve_fused(cfg, dev)
+    temporal = get_temporal(cfg.arch) is not None
+    if temporal and sharded and mesh.n_frame > 1:
+        raise ValueError(f"{cfg.arch} shifts along a clip's frames: its "
+                         "segments cannot be split over frame ranks")
     dtype = _DTYPES[cfg.compute_dtype]
     if dev.type == "cuda":
         use_full_f32()  # the f32 resize and fc are full f32, as the reference
@@ -256,6 +272,9 @@ def make_train_step(cfg: TrainConfig, device: torch.device | str = "cuda",
             frames = frames_u8.to(dev, non_blocking=True)
             labels = labels.to(dev, torch.int64, non_blocking=True)
         b, k = frames.shape[0], frames.shape[1]
+        if temporal and k != cfg.num_segments:
+            raise ValueError(f"{cfg.arch} was built for T={cfg.num_segments} "
+                             f"segments a clip; this batch has K={k}")
         trace.count("train.images", b * k)
         bg, kg = b, k  # the global batch, of which this rank has a block
         rows = segs = slice(None)

@@ -18,6 +18,10 @@ Always on, with no switch; one registry per process.
   kept in a list of the most recent ``MAX_REPORTS`` (``reports()``).
 * ``count(name, n=1)`` adds to a named counter (``counters()``). A report
   holds each counter's increment over its root.
+* ``span(name, device=True, timed=True)`` also times the device work
+  between its ends: a timing event on the root's stream at its start and at
+  its end, from any thread (autograd's backward included). A report's
+  ``device_span_s`` sums those seconds by name (``None`` on the CPU).
 
 Device gaps. On a CUDA device, the root's thread is in host-only state
 when its innermost open span has ``device=False``; code outside every
@@ -251,6 +255,7 @@ class _Stamp:
     def __init__(self, clock, t0: float, label: str):
         self.clock, self.t0 = clock, t0
         self.pending: list = []   # (c, o, t_c, t_o, timeline)
+        self.timed: list = []     # (name, start, end) of timed spans
         self.n = 0                # host-only stretches timed
         self.gap_s = 0.0
         self.by_span: dict[str, float] = {}
@@ -295,6 +300,18 @@ class _Stamp:
             self.to_device(now)
         self.resolve(wait=True)
 
+    def timed_seconds(self) -> dict[str, float]:
+        """The timed spans' device seconds by name (waits for the last)."""
+        with _lock:
+            timed, self.timed = self.timed, []
+        out: dict[str, float] = {}
+        if timed:
+            self.clock.wait(timed[-1][2])
+            for (name, _, _), s in zip(timed, self.clock.read(
+                    [(a, b) for _, a, b in timed])):
+                out[name] = out.get(name, 0.0) + s
+        return out
+
 
 # -- spans ------------------------------------------------------------------
 
@@ -304,12 +321,13 @@ class span:
     (its ident), ``t0``, ``t1`` (``perf_counter`` seconds) and ``step``
     (``(root number, step)`` of the root it folds into, or None)."""
 
-    __slots__ = ("name", "device", "t0", "t1", "_step", "_parent", "_child",
-                 "_rf", "_root", "_th")
+    __slots__ = ("name", "device", "timed", "t0", "t1", "_step", "_parent",
+                 "_child", "_rf", "_root", "_th", "_ev")
 
-    def __init__(self, name: str, device: bool = False):
+    def __init__(self, name: str, device: bool = False, timed: bool = False):
         self.name = name
         self.device = device
+        self.timed = timed
 
     @property
     def parent(self):
@@ -347,6 +365,9 @@ class span:
         else:
             self._rf = None
         stack.append(self)
+        self._ev = None
+        if self.timed and rt is not None and rt.stamp is not None:
+            self._ev = rt.stamp.clock.record()
         self.t0 = now = _perf()
         if rt is not None:
             self._step = rt.step_id
@@ -371,6 +392,10 @@ class span:
         parent = self._parent
         parent._child += dur
         rt = self._root
+        if self._ev is not None and rt.stamp is not None:
+            st = rt.stamp
+            with _lock:
+                st.timed.append((self.name, self._ev, st.clock.record()))
         if rt is not None:
             if rt._th is th:
                 try:
@@ -467,11 +492,12 @@ class root(span):
             self._rf.__exit__(None, None, None)
         if _profiler._is_profiler_enabled:
             self.profiled = True
-        gap = by = n_gaps = None
+        gap = by = n_gaps = timed = None
         st, self.stamp = self.stamp, None
         if st is not None and et is None:  # a raising block reads none
             st.close(now)
             gap, by, n_gaps = st.gap_s, dict(st.by_span), st.n
+            timed = st.timed_seconds()
         c1 = counters()
         with _lock:
             _roots.remove(self)
@@ -490,7 +516,7 @@ class root(span):
             "counters": {k: v - self._c0.get(k, 0) for k, v in c1.items()
                          if v != self._c0.get(k, 0)},
             "device_gap_s": gap, "device_gap_by_span": by,
-            "device_gap_n": n_gaps}
+            "device_gap_n": n_gaps, "device_span_s": timed}
         with _lock:
             _reports.append(self.report)
         return False

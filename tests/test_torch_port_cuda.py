@@ -961,3 +961,35 @@ def test_train_frames_page_locked_and_copied_whole(dev):
     bad = [s for s, (h, d) in enumerate(zip(host, copies))
            if not torch.equal(d.cpu(), h)]
     assert not bad, f"steps whose copy read a later batch: {bad}"
+
+
+# TSM's shift at ResNet-50's block inputs (frames of 2 clips x T 8, h = w,
+# c), a ragged one (c 24: 8-byte units in bf16, 16 in f32) and an odd one
+# (c 10, fold 1: 2- and 4-byte units).
+SHIFT_SHAPES = [(56, 64), (56, 256), (28, 512), (14, 1024), (7, 2048),
+                (5, 24), (3, 10)]
+
+
+@pytest.mark.parametrize("hw,c", SHIFT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_shift_kernel_equal(dev, hw, c, dtype):
+    """The shift kernel, forward and adjoint, bit for bit against its plain
+    version (a copy); through autograd, its gradient is the adjoint."""
+    from eov_tpu_torch.ops import temporal_shift as ts
+
+    t = 8
+    g = torch.Generator(device=dev).manual_seed(hw * c)
+    x = torch.randn(2 * t, c, hw, hw, generator=g, device=dev).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    iv = torch.int32 if dtype == torch.float32 else torch.int16
+    for reverse in (False, True):
+        got = ts.shift_cuda(x, t, c // 8, reverse)
+        want = ts.shift_plain(x, t, c // 8, reverse)
+        assert torch.equal(got.view(iv), want.view(iv))
+    before = launches(ts.temporal_shift)
+    xr = x.clone().requires_grad_(True)
+    y = torch.randn_like(x)
+    (ts.temporal_shift(xr, t, c // 8) * y).sum().backward()
+    assert trace.counter("launch.temporal_shift") == before + 2
+    assert torch.equal(xr.grad.view(iv),
+                       ts.shift_plain(y, t, c // 8, True).view(iv))
